@@ -1,4 +1,4 @@
-"""Chip smoke test: the PyTorch/CUDA port's main path on one CUDA card.
+"""Chip smoke test: the PyTorch/CUDA port's main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -12,17 +12,38 @@ non-zero and prints no result:
    first shadow wavefront. Hit masks, prim ids and any-hit answers must be
    equal, t within 2e-5.
 4. main path: ``render_scene`` of tests/scenes/rock100k.xml on cuda, with
-   both kernels' launch counters reset just before and read just after;
-   the frame must match tests/goldens/rock100k.ppm at
-   frac(|dLDR| > 1) < 1e-4. The six texture-free deterministic goldens
-   (simple, cornellbox, brdfs, lights, transforms, instances) must meet
-   their bounds.
+   the launch counters reset just before and read just after; the frame
+   must match tests/goldens/rock100k.ppm at frac(|dLDR| > 1) < 1e-4. The
+   six texture-free deterministic goldens (simple, cornellbox, brdfs,
+   lights, transforms, instances) must meet their bounds.
 5. times on this card: median of 5 rock100k frames after a warm-up at
    400x400 and 800x800 (1 spp), and kernel vs plain walk times for one
    primary and one shadow wavefront at 400x400.
+6. multi-pack kernels vs plain, on the card: a random mesh cut into packs
+   (NaN, zero and d == 0 rays, per-lane caps), then rock1800k's primary
+   and first shadow wavefronts (tests/scenes/rock1800k.ply is written by
+   scene/assets.py when missing; 1,800,902 triangles in 28 packs). Hit
+   masks, |t| keys and any-hit answers must be equal, t within 2e-5, prim
+   ids equal except at exact |t| ties between packs, where both ids must
+   name triangles at that |t|.
+7. main path at dragon scale: ``render_scene`` of rock1800k; the counters
+   must show multi-pack launches and no single-pack launch, and the frame
+   must match tests/goldens/rock1800k.ppm at frac(|dLDR| > 1) < 1e-4.
+8. instances: the single-pack kernels vs their plain walks at this path's
+   shapes (instances_rock's primary and first shadow wavefronts, each
+   carried into the 37 instances' local spaces and concatenated: 5.9M
+   lanes over the 6,242-triangle tree), with the checks of phase 3; then
+   ``render_scene`` of instances_rock (one launch a query for all 37
+   instances) against its golden at mean < 0.2 and frac>2 < 0.01; the
+   launch counts are printed.
+9. times: rock1800k load and frame (median of 5 after a warm-up), the
+   multi-pack kernels vs their plain versions on its two wavefronts, the
+   single-pack kernels over one BVH of the same triangles (a probe), and
+   instances_rock frames with batched against per-group launches.
 
-The last two lines are the kernels' JSON record and the result line.
-It imports nothing of jax or of the JAX package.
+The last three lines are the card, the kernels' JSON record and the result
+line; the wall time is printed on an earlier line. It imports nothing of
+jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +73,10 @@ FRAME_REPS = 5
 GOLDEN_BOUNDS = (("simple", 0.01, 0.001), ("cornellbox", 0.01, 0.001),
                  ("brdfs", 0.01, 0.001), ("lights", 0.01, 0.001),
                  ("transforms", 0.2, 0.01), ("instances", 0.2, 0.01))
+REPLACES = {name: f"raytracer795_tpu/ops/pallas_bvh.py:{line}"
+            for name, line in (("nearest", 335), ("anyhit", 404),
+                               ("nearest_multi", 767),
+                               ("anyhit_multi", 835))}
 
 
 def check(cond, msg):
@@ -124,15 +149,19 @@ def compare(bt, tb, o, d, cap, eps):
     return err, mismatches, int(hit.sum()), int(found.sum())
 
 
-def random_case(bt, t, n, seed, dev):
-    from raytracer795_tpu_torch.ops import bvh
-    from raytracer795_tpu_torch.scene.types import to_device
+def col3(a, dev):
     from raytracer795_tpu_torch.utils.vec3 import Vec3
 
+    return Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, k])).to(dev)
+                  for k in range(3)))
+
+
+def random_inputs(t, n, seed):
+    """A random mesh and rays with d == 0 components, NaN origins, zero
+    directions, and per-lane caps (tests/test_pallas.py:32-52)."""
     rng = np.random.default_rng(seed)
     verts = rng.normal(size=(t * 3, 3)).astype(np.float32)
     tri_vidx = np.arange(t * 3, dtype=np.int32).reshape(t, 3)
-    flat, perm = bvh.build(*bvh.tri_bounds(verts, tri_vidx))
     o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -140,21 +169,84 @@ def random_case(bt, t, n, seed, dev):
     o[n // 16: n // 8] = np.nan
     d[n // 8: 3 * n // 16] = 0.0
     cap = rng.uniform(0.1, 5.0, n).astype(np.float32)
+    return verts, tri_vidx, o, d, cap
 
-    def col(a):
-        return Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, k])).to(dev)
-                      for k in range(3)))
 
+def random_case(bt, t, n, seed, dev):
+    from raytracer795_tpu_torch.ops import bvh
+    from raytracer795_tpu_torch.scene.types import to_device
+
+    verts, tri_vidx, o, d, cap = random_inputs(t, n, seed)
+    flat, perm = bvh.build(*bvh.tri_bounds(verts, tri_vidx))
     tb = bt.build_tables(to_device(flat, dev),
                          torch.from_numpy(verts).to(dev),
                          torch.from_numpy(tri_vidx[perm]).to(dev))
     eps = torch.tensor(1e-3, dtype=torch.float32, device=dev)
-    return compare(bt, tb, col(o), col(d), torch.from_numpy(cap).to(dev), eps)
+    return compare(bt, tb, col3(o, dev), col3(d, dev),
+                   torch.from_numpy(cap).to(dev), eps)
+
+
+def compare_multi(bt, mt, o, d, cap, eps):
+    """Multi-pack kernels vs their plain per-pack walks on the card.
+
+    Returns (max |dt| over hits, any-hit mismatches, hits, occluded, exact
+    |t| ties between packs where the prim ids differ)."""
+    from raytracer795_tpu_torch.ops import intersect
+    from raytracer795_tpu_torch.utils.vec3 import Vec3
+
+    packs = bt.decode_multi(mt)
+    key, t, idx = bt.tri_bvh_nearest_multi(mt, o, d, eps)
+    found = bt.tri_bvh_anyhit_multi(mt, o, d, cap, eps)
+    pkey, pt, pidx = intersect._tri_bvh_candidates_multi(packs, o, d, eps)
+    pfound = intersect._tri_bvh_anyhit_multi(packs, o, d, cap, eps)
+    torch.cuda.synchronize()
+    hit = key < 1e38
+    check(torch.equal(hit, pkey < 1e38), "multi nearest hit masks differ")
+    check(torch.equal(key, pkey), "multi nearest |t| keys differ")
+    tie = hit & (idx != pidx)
+    if tie.any():
+        # both ids must name accepted triangles at the lane's |t|
+        lanes = torch.nonzero(tie)[:, 0]
+        p0 = packs[0]
+
+        def at(tbl, j):
+            return Vec3(tbl.x[j], tbl.y[j], tbl.z[j])
+
+        o_l, d_l = at(o, lanes), at(d, lanes)
+        for ids in (idx[lanes].long(), pidx[lanes].long()):
+            ok, tj = intersect._tri_test(o_l, d_l, at(p0.a, ids),
+                                         at(p0.e1, ids), at(p0.e2, ids),
+                                         at(p0.ng, ids), eps)
+            check(bool(ok.all()) and torch.equal(tj.abs(), key[lanes]),
+                  "a differing prim id names no triangle at the lane's |t|")
+    same = hit & ~tie
+    err = float((t[same] - pt[same]).abs().max()) if same.any() else 0.0
+    check(err <= T_TOL, f"multi nearest t differs by {err}")
+    mismatches = int((found != pfound).sum())
+    check(mismatches == 0, f"{mismatches} multi any-hit answers differ")
+    return err, mismatches, int(hit.sum()), int(found.sum()), int(tie.sum())
+
+
+def random_multi_case(bt, t, n, seed, pack_tris, dev):
+    from raytracer795_tpu_torch.ops import bvh
+    from raytracer795_tpu_torch.scene.types import to_device
+
+    verts, tri_vidx, o, d, cap = random_inputs(t, n, seed)
+    perm, packs = bvh.build_multipack(verts, tri_vidx, pack_tris=pack_tris)
+    check(len(packs) >= 4, f"{len(packs)} packs")
+    mt = bt.build_multi_tables(to_device(packs, dev),
+                               torch.from_numpy(verts).to(dev),
+                               torch.from_numpy(tri_vidx[perm]).to(dev))
+    eps = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    return len(packs), compare_multi(bt, mt, col3(o, dev), col3(d, dev),
+                                     torch.from_numpy(cap).to(dev), eps)
 
 
 def rock_wavefronts(loaded):
-    """rock100k's primary wavefront and its first shadow wavefront (light
-    0), as the main path builds them; the scene is one untransformed group."""
+    """A scene's primary wavefront and its first shadow wavefront (light
+    0) in world space, as the main path builds them: (primary, shadow,
+    shadow caps). For a scene of one untransformed group they are also the
+    group's local rays."""
     from raytracer795_tpu_torch import render
     from raytracer795_tpu_torch.models import camera, lights
     from raytracer795_tpu_torch.ops import intersect
@@ -184,7 +276,36 @@ def rock_wavefronts(loaded):
     return rays, shadow, cap
 
 
+def frame_times(render, ld, reps=FRAME_REPS):
+    """Host seconds of ``reps`` LDR frames after one warm-up frame."""
+    render.render_camera(ld, 0, ldr=True)
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render.render_camera(ld, 0, ldr=True)
+        secs.append(time.perf_counter() - t0)
+    check(out.shape == (ld.cameras[0].ny, ld.cameras[0].nx, 3), "frame shape")
+    return secs
+
+
+def main_path(render, bt, loaded, name):
+    """``render_scene`` with every launch counter reset just before and
+    read just after; returns (seconds, launches, LDR frame)."""
+    os.makedirs(OUT, exist_ok=True)
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    (png,) = render.render_scene(loaded, OUT)
+    seconds = time.perf_counter() - t0
+    launches = dict(bt.LAUNCHES)
+    img = png_pixels(png).astype(np.float32)
+    check(img.shape == (loaded.cameras[0].ny, loaded.cameras[0].nx, 3),
+          f"{name} frame shape {img.shape}")
+    return seconds, launches, img
+
+
 def main() -> int:
+    wall0 = time.perf_counter()
     # ---- 1. device ----
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -196,14 +317,18 @@ def main() -> int:
           cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     from raytracer795_tpu_torch import render
+    from raytracer795_tpu_torch.ops import bvh
     from raytracer795_tpu_torch.ops import bvh_traverse as bt
     from raytracer795_tpu_torch.ops import intersect
+    from raytracer795_tpu_torch.scene import assets
     from raytracer795_tpu_torch.scene.loader import load_scene
+    from raytracer795_tpu_torch.scene.types import to_device
     from raytracer795_tpu_torch.utils.image_io import read_ppm
 
     # ---- 2. build ----
     _, build_s, log = bt.build_kernels()
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    regs = [ln.strip() for ln in log.splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
     phase("build", seconds=build_s, ptxas=regs)
 
     # ---- 3. kernel vs plain on the card ----
@@ -235,17 +360,10 @@ def main() -> int:
               occluded=occ)
 
     # ---- 4. main path ----
-    os.makedirs(OUT, exist_ok=True)
-    bt.reset_launch_counts()
-    t0 = time.perf_counter()
-    (png,) = render.render_scene(loaded, OUT)
-    main_s = time.perf_counter() - t0
-    launches = dict(bt.LAUNCHES)
+    main_s, launches, img = main_path(render, bt, loaded, "rock100k")
     check(launches["nearest"] > 0 and launches["anyhit"] > 0,
           f"the main path launched every kernel: {launches}")
-    img = png_pixels(png).astype(np.float32)
     gold = read_ppm(os.path.join(GOLDENS, "rock100k.ppm"))
-    check(img.shape == gold.shape, f"frame shape {img.shape}")
     frac = float((np.abs(img - gold) > 1).mean())
     check(frac < 1e-4, f"rock100k golden: frac(|d|>1) = {frac}")
     phase("main_path", scene="rock100k", seconds=main_s, launches=launches,
@@ -261,21 +379,12 @@ def main() -> int:
         phase("golden", scene=name, mean_abs=mean, frac_gt2=frac2)
 
     # ---- 5. times on this card ----
-    frames = {}
     for res in FRAME_RES:
         ld = load_scene(rock_xml, dev)
         ld.cameras[0] = dataclasses.replace(ld.cameras[0], nx=res, ny=res)
-        render.render_camera(ld, 0, ldr=True)          # warm-up
-        secs = []
-        for _ in range(FRAME_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = render.render_camera(ld, 0, ldr=True)
-            secs.append(time.perf_counter() - t0)
-        check(out.shape == (res, res, 3), f"{res} frame shape")
-        frames[res] = statistics.median(secs)
+        secs = frame_times(render, ld)
         phase("frame_time", scene="rock100k", res=res, spp=1,
-              median_s=frames[res], samples_s=secs, card=card)
+              median_s=statistics.median(secs), samples_s=secs, card=card)
 
     dec = bt.decode(tb)
     timing = {
@@ -292,17 +401,168 @@ def main() -> int:
     for name, (k_ms, p_ms) in timing.items():
         phase("kernel_time", kernel=name, wavefront="400x400 rock100k",
               kernel_ms=k_ms, plain_ms=p_ms, card=card)
-
-    replaces = {"nearest": "raytracer795_tpu/ops/pallas_bvh.py:335",
-                "anyhit": "raytracer795_tpu/ops/pallas_bvh.py:404"}
     # any-hit answers are booleans, so their |kernel - plain| is 0 or 1
     err_by = {"nearest": max(errs), "anyhit": float(max(mism) > 0)}
+
+    # ---- 6. multi-pack kernels vs plain on the card ----
+    errs, mism = [], []
+    n_packs, (err, bad, hits, occ, ties) = random_multi_case(
+        bt, 600, 4096, 2, 128, dev)
+    errs.append(err)
+    mism.append(bad)
+    phase("multi_kernel_vs_plain", case="random mesh 600 tris, 4096 rays",
+          packs=n_packs, max_abs_t_err=err, anyhit_mismatches=bad,
+          hits=hits, occluded=occ, tie_lanes=ties)
+    nu, nv = assets.ROCK1800K_GRID
+    assets.ensure_rock(os.path.join(SCENES, "rock1800k.ply"), nu, nv)
+    big_xml = os.path.join(SCENES, "rock1800k.xml")
+    t0 = time.perf_counter()
+    big = load_scene(big_xml, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    (bgroup,) = big.scene.groups
+    check(bgroup.bvh is None and bgroup.pack_bvhs is not None,
+          "rock1800k is one multi-pack group")
+    bprim, bshadow, bcap = rock_wavefronts(big)
+    mt = bt.build_multi_tables(bgroup.pack_bvhs, big.scene.vertices,
+                               bgroup.tri_vidx)
+    beps = big.scene.int_eps
+    phase("load", scene="rock1800k", seconds=load_s, tris=bgroup.n_tris,
+          packs=mt.n_packs, nodes=mt.nodes.shape[0])
+    for case, rays, rcap in (
+            ("rock1800k primary wavefront", bprim,
+             torch.full_like(bprim.o.x, 3.0e38)),
+            ("rock1800k first shadow wavefront", bshadow, bcap)):
+        err, bad, hits, occ, ties = compare_multi(bt, mt, rays.o, rays.d,
+                                                  rcap, beps)
+        errs.append(err)
+        mism.append(bad)
+        phase("multi_kernel_vs_plain", case=case, rays=rays.o.x.shape[0],
+              max_abs_t_err=err, anyhit_mismatches=bad, hits=hits,
+              occluded=occ, tie_lanes=ties)
+    err_by["nearest_multi"] = max(errs)
+    err_by["anyhit_multi"] = float(max(mism) > 0)
+
+    # ---- 7. main path at dragon scale ----
+    big_s, big_launches, img = main_path(render, bt, big, "rock1800k")
+    check(big_launches["nearest_multi"] > 0
+          and big_launches["anyhit_multi"] > 0,
+          f"rock1800k launched both multi-pack kernels: {big_launches}")
+    check(big_launches["nearest"] == 0 and big_launches["anyhit"] == 0,
+          f"rock1800k launched no single-pack kernel: {big_launches}")
+    gold = read_ppm(os.path.join(GOLDENS, "rock1800k.ppm"))
+    frac = float((np.abs(img - gold) > 1).mean())
+    check(frac < 1e-4, f"rock1800k golden: frac(|d|>1) = {frac}")
+    phase("main_path", scene="rock1800k", seconds=big_s,
+          launches=big_launches, golden_frac_gt1=frac)
+    for k in ("nearest_multi", "anyhit_multi"):
+        launches[k] = big_launches[k]
+
+    # ---- 8. instances, batched ----
+    inst = load_scene(os.path.join(SCENES, "instances_rock.xml"), dev)
+    clusters = intersect._pack_clusters(inst.scene)
+    check([len(g) for g in clusters.values()] == [37],
+          f"one cluster of 37 groups: {clusters}")
+    # the single-pack kernels vs plain on the query the batched dispatch
+    # makes (intersect._batched_nearest / _batched_anyhit)
+    (gis,) = clusters.values()
+    base = inst.scene.groups[gis[0]]
+    itb = bt.build_tables(base.bvh, inst.scene.vertices, base.tri_vidx)
+    iprim, ishadow, icap = rock_wavefronts(inst)
+    for case, rays, rcap in (
+            ("instances_rock primary wavefront", iprim,
+             torch.full_like(iprim.o.x, 3.0e38)),
+            ("instances_rock first shadow wavefront", ishadow, icap)):
+        o, d = intersect._concat_local_rays(inst.scene, gis, rays)
+        err, bad, hits, occ = compare(bt, itb, o, d, rcap.repeat(len(gis)),
+                                      inst.scene.int_eps)
+        err_by["nearest"] = max(err_by["nearest"], err)
+        err_by["anyhit"] = max(err_by["anyhit"], float(bad > 0))
+        phase("kernel_vs_plain", case=case, groups=len(gis),
+              rays=o.x.shape[0], max_abs_t_err=err, anyhit_mismatches=bad,
+              hits=hits, occluded=occ)
+    inst_s, inst_launches, img = main_path(render, bt, inst,
+                                           "instances_rock")
+    diff = np.abs(img - read_ppm(os.path.join(GOLDENS,
+                                              "instances_rock.ppm")))
+    mean, frac2 = float(diff.mean()), float((diff > 2).mean())
+    check(mean < 0.2 and frac2 < 0.01,
+          f"instances_rock golden: mean {mean}, frac>2 {frac2}")
+    check(0 < inst_launches["nearest"] < 37
+          and 0 < inst_launches["anyhit"] < 37,
+          f"one single-pack launch per query, not per group: "
+          f"{inst_launches}")
+    phase("main_path", scene="instances_rock", seconds=inst_s,
+          launches=inst_launches, golden_mean_abs=mean, golden_frac_gt2=frac2)
+
+    # ---- 9. times at dragon scale and for instances ----
+    secs = frame_times(render, big)
+    phase("frame_time", scene="rock1800k", res=400, spp=1,
+          median_s=statistics.median(secs), samples_s=secs,
+          load_s=load_s, card=card)
+    packs = bt.decode_multi(mt)
+    timing["nearest_multi"] = (
+        cuda_ms(lambda: bt.tri_bvh_nearest_multi(mt, bprim.o, bprim.d,
+                                                 beps), 20),
+        cuda_ms(lambda: intersect._tri_bvh_candidates_multi(
+            packs, bprim.o, bprim.d, beps), 1))
+    timing["anyhit_multi"] = (
+        cuda_ms(lambda: bt.tri_bvh_anyhit_multi(mt, bshadow.o, bshadow.d,
+                                                bcap, beps), 20),
+        cuda_ms(lambda: intersect._tri_bvh_anyhit_multi(
+            packs, bshadow.o, bshadow.d, bcap, beps), 1))
+    for name in ("nearest_multi", "anyhit_multi"):
+        k_ms, p_ms = timing[name]
+        phase("kernel_time", kernel=name, wavefront="400x400 rock1800k",
+              kernel_ms=k_ms, plain_ms=p_ms, card=card)
+
+    # probe: the single-pack kernels over ONE BVH of the same triangles
+    verts_np = big.scene.vertices.cpu().numpy()
+    tv_np = bgroup.tri_vidx.cpu().numpy()
+    t0 = time.perf_counter()
+    flat, perm = bvh.build(*bvh.tri_bounds(verts_np, tv_np))
+    one_build_s = time.perf_counter() - t0
+    tb1 = bt.build_tables(to_device(flat, dev), big.scene.vertices,
+                          bgroup.tri_vidx[torch.from_numpy(perm).to(dev)])
+    k1, _, _ = bt.tri_bvh_nearest(tb1, bprim.o, bprim.d, beps)
+    km, _, _ = bt.tri_bvh_nearest_multi(mt, bprim.o, bprim.d, beps)
+    f1 = bt.tri_bvh_anyhit(tb1, bshadow.o, bshadow.d, bcap, beps)
+    fm = bt.tri_bvh_anyhit_multi(mt, bshadow.o, bshadow.d, bcap, beps)
+    phase("one_tree_probe", scene="rock1800k", build_s=one_build_s,
+          nodes=tb1.n_nodes, keys_equal=bool(torch.equal(k1, km)),
+          anyhit_equal=bool(torch.equal(f1, fm)),
+          nearest_ms=cuda_ms(lambda: bt.tri_bvh_nearest(
+              tb1, bprim.o, bprim.d, beps), 20),
+          anyhit_ms=cuda_ms(lambda: bt.tri_bvh_anyhit(
+              tb1, bshadow.o, bshadow.d, bcap, beps), 20),
+          card=card)
+
+    # instances_rock frames: batched (the main path) against per-group
+    # launches, the latter by leaving the dispatch no clusters
+    batched = frame_times(render, inst)
+    clusters_fn = intersect._pack_clusters
+    intersect._pack_clusters = lambda scene: {}
+    try:
+        bt.reset_launch_counts()
+        render.render_camera(inst, 0, ldr=True)
+        per_group_launches = dict(bt.LAUNCHES)
+        per_group = frame_times(render, inst)
+    finally:
+        intersect._pack_clusters = clusters_fn
+    phase("instances_time", scene="instances_rock", res=400,
+          batched_median_s=statistics.median(batched), batched_s=batched,
+          batched_launches=inst_launches,
+          per_group_median_s=statistics.median(per_group),
+          per_group_s=per_group, per_group_launches=per_group_launches,
+          card=card)
+
     kernels = [{
         "name": name, "route": "cuda",
         "source": "raytracer795_tpu_torch/csrc/bvh_traverse.cu",
-        "replaces": replaces[name], "launches": launches[name],
+        "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": err_by[name], "ms": timing[name][0],
-        "plain_ms": timing[name][1]} for name in ("nearest", "anyhit")]
+        "plain_ms": timing[name][1]} for name in REPLACES]
+    phase("wall", seconds=time.perf_counter() - wall0)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

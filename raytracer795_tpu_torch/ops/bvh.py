@@ -10,6 +10,11 @@ Round-robin axis, median of centers, depth cap 30 (src/BVH.cpp:64-135),
 leaves of up to ``LEAF_SIZE`` primitives. Primitives are permuted so every
 leaf is a contiguous range; ``build`` returns the permutation. The native
 builder and the numpy builder give the same hits; which one ran is logged.
+
+``build_multipack`` is the host half of the JAX package's
+``pallas_bvh.build_multipack``: a large group is cut into Morton-ordered
+packs of ``PACK_TRIS`` triangles, each with its own BVH. The cut fixes the
+group's triangle order and prim ids, so the port makes the same one.
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ from raytracer795_tpu_torch.scene import types as T
 
 LEAF_SIZE = 36
 MAX_DEPTH = 30  # reference depth cap (src/BVH.cpp:42,55)
+# multi-pack defaults of the JAX package (pallas_bvh.py:588-596)
+PACK_TRIS = 63 * 1024
+PACK_LEAF = 72
 
 _log = logging.getLogger(__name__)
 
@@ -144,3 +152,49 @@ def tri_bounds(verts: np.ndarray, tri_vidx: np.ndarray
     """Per-triangle bboxes from a vertex pool + index array."""
     pts = verts[tri_vidx]          # [T, 3, 3]
     return pts.min(axis=1), pts.max(axis=1)
+
+
+def _morton3(q: np.ndarray) -> np.ndarray:
+    """Interleave 3x10-bit quantized coords into 30-bit Morton keys."""
+    out = np.zeros(q.shape[0], np.int64)
+    for b in range(10):
+        for ax in range(3):
+            out |= ((q[:, ax].astype(np.int64) >> b) & 1) << (3 * b + ax)
+    return out
+
+
+def build_multipack(verts: np.ndarray, tri_vidx: np.ndarray,
+                    pack_tris: int = PACK_TRIS, pack_leaf: int = PACK_LEAF
+                    ) -> Tuple[np.ndarray, Tuple[T.FlatBVH, ...]]:
+    """Morton-ordered packs of ``pack_tris`` triangles, one BVH each.
+
+    Triangles are sorted (stably) by the Morton key of their quantized
+    float32 centroid and cut into consecutive chunks; each chunk gets
+    ``build(..., leaf_size=pack_leaf)``. Returns ``(perm, pack_bvhs)``:
+    ``perm`` composes the Morton order with each pack's leaf order, and the
+    caller reorders its triangle SoA by it; each pack's ``first`` is offset
+    to that global order. The same cut as ``pallas_bvh.build_multipack``
+    (pallas_bvh.py:624-675), without its TPU row tables.
+    """
+    verts = np.asarray(verts, np.float32)
+    tri_vidx = np.asarray(tri_vidx, np.int32)
+    n = tri_vidx.shape[0]
+    cent = (verts[tri_vidx[:, 0]] + verts[tri_vidx[:, 1]]
+            + verts[tri_vidx[:, 2]]) / 3.0
+    lo, hi = cent.min(0), cent.max(0)
+    q = np.clip(((cent - lo) / np.maximum(hi - lo, 1e-30) * 1023.0), 0,
+                1023).astype(np.int32)
+    order = np.argsort(_morton3(q), kind="stable").astype(np.int32)
+    n_packs = -(-n // pack_tris)
+    perm_parts, flats = [], []
+    start = 0
+    for p in range(n_packs):
+        ids = order[p * pack_tris:(p + 1) * pack_tris]
+        flat, pperm = build(*tri_bounds(verts, tri_vidx[ids]),
+                            leaf_size=pack_leaf)
+        perm_parts.append(ids[pperm])
+        flats.append(T.FlatBVH(bmin=flat.bmin, bmax=flat.bmax,
+                               first=flat.first + start, count=flat.count,
+                               miss=flat.miss, max_leaf=flat.max_leaf))
+        start += ids.shape[0]
+    return np.concatenate(perm_parts), tuple(flats)

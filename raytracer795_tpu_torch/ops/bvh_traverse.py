@@ -1,16 +1,21 @@
-"""BVH traversal on the card: tables, kernel build, and the two wrappers.
+"""BVH traversal on the card: tables, kernel build, and the four wrappers.
 
-Counterpart of the single-pack half of ``raytracer795_tpu/ops/pallas_bvh.py``.
-The kernels are hand-written CUDA C++ in ``csrc/bvh_traverse.cu`` (see the
-note there for what they replace and what bounds them):
+Counterpart of ``raytracer795_tpu/ops/pallas_bvh.py``. The kernels are
+hand-written CUDA C++ in ``csrc/bvh_traverse.cu`` (see the note there for
+what they replace and what bounds them):
 
 - ``tri_bvh_nearest`` replaces ``tri_bvh_nearest`` / ``_nearest_kernel``;
-- ``tri_bvh_anyhit`` replaces ``tri_bvh_anyhit`` / ``_anyhit_kernel``.
+- ``tri_bvh_anyhit`` replaces ``tri_bvh_anyhit`` / ``_anyhit_kernel``;
+- ``tri_bvh_nearest_multi`` replaces ``tri_bvh_nearest_multi`` /
+  ``_nearest_multi_kernel`` (with its TLAS pass ``_block_pack_lists``);
+- ``tri_bvh_anyhit_multi`` replaces ``tri_bvh_anyhit_multi`` /
+  ``_anyhit_multi_kernel``.
 
 Each wrapper takes the kernel path for CUDA tensors and the plain walk of
 ops/intersect.py for CPU tensors, and for nothing else: a CUDA tensor
 launches the kernel or raises. The plain walks read the same tables,
-decoded (``decode``), and are what the kernels are held to.
+decoded (``decode``, ``decode_multi``), and are what the kernels are held
+to.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` into
 a shared library with a plain C interface under ``build/cuda/`` at the
@@ -29,9 +34,10 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from raytracer795_tpu_torch.ops import intersect
 from raytracer795_tpu_torch.scene import types as T
@@ -45,11 +51,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 # launches per kernel, counted where each wrapper launches its kernel
-LAUNCHES = {"nearest": 0, "anyhit": 0}
+LAUNCHES = {"nearest": 0, "anyhit": 0, "nearest_multi": 0,
+            "anyhit_multi": 0}
+# packs a multi-pack kernel takes: its per-ray pack list is this long
+# (csrc/bvh_traverse.cu kMaxPacks); rock1800k has 28
+MAX_PACKS = 64
 
 _log = logging.getLogger(__name__)
 _LOCK = threading.Lock()
 _LIB: dict = {}
+# node tables of the builds in use (``_build_nodes``)
+_NODES = WeakIdKeyDictionary()
 
 
 @dataclasses.dataclass
@@ -87,34 +99,123 @@ class Decoded(NamedTuple):
     n_nodes: int
 
 
+def _node_rows(bmin, bmax, first, count) -> torch.Tensor:
+    # assembled as int32 so the index fields keep their bits exactly
+    return torch.cat([bmin.view(torch.int32), first[:, None],
+                      bmax.view(torch.int32), count[:, None]],
+                     dim=1).view(torch.float32)
+
+
+def _tri_rows(vertices: torch.Tensor, tri_vidx: torch.Tensor) -> torch.Tensor:
+    a, e1, e2, ng = intersect.tri_components(vertices, tri_vidx)
+    z = torch.zeros_like(a.x)
+    return torch.stack([a.x, a.y, a.z, z, e1.x, e1.y, e1.z, z,
+                        e2.x, e2.y, e2.z, z, ng.x, ng.y, ng.z, z], dim=1)
+
+
+def _build_nodes(key: torch.Tensor, make):
+    """The node part of a build's tables, made once: node bounds are the
+    build's and do not follow the vertices. Keyed weakly by a tensor of the
+    build (instances of one mesh share it), so it goes with the scene."""
+    got = _NODES.get(key)
+    if got is None:
+        got = _NODES[key] = make()
+    return got
+
+
 def build_tables(bvh: T.FlatBVH, vertices: torch.Tensor,
                  tri_vidx: torch.Tensor) -> TraverseTables:
     """Tables from a FlatBVH and the LIVE vertices (the counterpart of the
     JAX package's ``fresh_tri_rows``): a vertex update moves the geometry
     the kernels intersect, while node bounds stay those of the build."""
-    a, e1, e2, ng = intersect.tri_components(vertices, tri_vidx)
-    z = torch.zeros_like(a.x)
-    tris = torch.stack([a.x, a.y, a.z, z, e1.x, e1.y, e1.z, z,
-                        e2.x, e2.y, e2.z, z, ng.x, ng.y, ng.z, z], dim=1)
-    # assembled as int32 so the index fields keep their bits exactly
-    nodes = torch.cat([bvh.bmin.view(torch.int32), bvh.first[:, None],
-                       bvh.bmax.view(torch.int32), bvh.count[:, None]],
-                      dim=1).view(torch.float32)
-    return TraverseTables(nodes=nodes, miss=bvh.miss.contiguous(),
-                          tris=tris, max_leaf=bvh.max_leaf)
+    nodes = _build_nodes(bvh.first, lambda: _node_rows(
+        bvh.bmin, bvh.bmax, bvh.first, bvh.count))
+    return TraverseTables(
+        nodes=nodes, miss=bvh.miss.contiguous(),
+        tris=_tri_rows(vertices, tri_vidx), max_leaf=bvh.max_leaf)
+
+
+def _decode_nodes(nodes: torch.Tensor):
+    ni = nodes.view(torch.int32)
+    return (Vec3(nodes[:, 0], nodes[:, 1], nodes[:, 2]),
+            Vec3(nodes[:, 4], nodes[:, 5], nodes[:, 6]), ni[:, 3], ni[:, 7])
+
+
+def _decode_tris(tr: torch.Tensor):
+    return (Vec3(tr[:, 0], tr[:, 1], tr[:, 2]),
+            Vec3(tr[:, 4], tr[:, 5], tr[:, 6]),
+            Vec3(tr[:, 8], tr[:, 9], tr[:, 10]),
+            Vec3(tr[:, 12], tr[:, 13], tr[:, 14]))
 
 
 def decode(tb: TraverseTables) -> Decoded:
-    nf, ni, tr = tb.nodes, tb.nodes.view(torch.int32), tb.tris
-    return Decoded(
-        bmin=Vec3(nf[:, 0], nf[:, 1], nf[:, 2]),
-        bmax=Vec3(nf[:, 4], nf[:, 5], nf[:, 6]),
-        first=ni[:, 3], count=ni[:, 7], miss=tb.miss,
-        a=Vec3(tr[:, 0], tr[:, 1], tr[:, 2]),
-        e1=Vec3(tr[:, 4], tr[:, 5], tr[:, 6]),
-        e2=Vec3(tr[:, 8], tr[:, 9], tr[:, 10]),
-        ng=Vec3(tr[:, 12], tr[:, 13], tr[:, 14]),
-        max_leaf=tb.max_leaf, n_nodes=tb.n_nodes)
+    bmin, bmax, first, count = _decode_nodes(tb.nodes)
+    a, e1, e2, ng = _decode_tris(tb.tris)
+    return Decoded(bmin=bmin, bmax=bmax, first=first, count=count,
+                   miss=tb.miss, a=a, e1=e1, e2=e2, ng=ng,
+                   max_leaf=tb.max_leaf, n_nodes=tb.n_nodes)
+
+
+@dataclasses.dataclass
+class MultiTables:
+    """The multi-pack kernels' tables for one group of K packs.
+
+    ``nodes`` [M, 8] f32 and ``miss`` [M] int32: every pack's nodes in the
+    layout of ``TraverseTables``, pack after pack; ``miss`` links stay
+    pack-local and ``first`` is global. ``offsets`` [K + 1] int32: pack p
+    owns nodes [offsets[p], offsets[p + 1]); its root is node offsets[p].
+    ``tris`` [T, 16] f32: the group's one triangle table, in pack order.
+    """
+
+    nodes: torch.Tensor
+    miss: torch.Tensor
+    offsets: torch.Tensor
+    tris: torch.Tensor
+    max_leaf: int
+
+    @property
+    def n_packs(self) -> int:
+        return self.offsets.shape[0] - 1
+
+
+def build_multi_tables(pack_bvhs, vertices: torch.Tensor,
+                       tri_vidx: torch.Tensor) -> MultiTables:
+    """Tables from a group's pack FlatBVHs and the LIVE vertices, as
+    ``build_tables`` makes them for one FlatBVH: the packs' nodes, links
+    and offsets once per group, the triangle rows on every call."""
+    def make():
+        def cat(field):
+            return torch.cat([getattr(f, field) for f in pack_bvhs])
+
+        sizes = [0] + [f.first.shape[0] for f in pack_bvhs]
+        offsets = torch.tensor(sizes, dtype=torch.int32).cumsum(
+            0, dtype=torch.int32)
+        return (_node_rows(cat("bmin"), cat("bmax"), cat("first"),
+                           cat("count")),
+                cat("miss"), offsets.to(pack_bvhs[0].first.device))
+
+    nodes, miss, offsets = _build_nodes(pack_bvhs[0].first, make)
+    return MultiTables(
+        nodes=nodes, miss=miss, offsets=offsets,
+        tris=_tri_rows(vertices, tri_vidx),
+        max_leaf=max(f.max_leaf for f in pack_bvhs))
+
+
+def decode_multi(mt: MultiTables) -> Tuple[Decoded, ...]:
+    """The tables read back as one ``Decoded`` per pack, each over the
+    group's whole triangle table (its ``first`` is global)."""
+    bmin, bmax, first, count = _decode_nodes(mt.nodes)
+    a, e1, e2, ng = _decode_tris(mt.tris)
+    bounds = mt.offsets.tolist()
+    packs = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        packs.append(Decoded(
+            bmin=Vec3(*(c[lo:hi] for c in bmin)),
+            bmax=Vec3(*(c[lo:hi] for c in bmax)),
+            first=first[lo:hi], count=count[lo:hi], miss=mt.miss[lo:hi],
+            a=a, e1=e1, e2=e2, ng=ng, max_leaf=mt.max_leaf,
+            n_nodes=hi - lo))
+    return tuple(packs)
 
 
 def _nvcc() -> str:
@@ -153,10 +254,14 @@ def build_kernels():
             _log.info("built %s:\n%s", so, log)
         lib = ctypes.CDLL(so)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rt795_bvh_nearest.argtypes = [p] * 10 + [i, i] + [p] * 4
-        lib.rt795_bvh_nearest.restype = i
-        lib.rt795_bvh_anyhit.argtypes = [p] * 11 + [i, i] + [p] * 2
-        lib.rt795_bvh_anyhit.restype = i
+        # rays (6), [t_cap], nodes, miss, [offsets], tris, int_eps; then
+        # node or pack count, ray count; outputs; stream
+        for name, n_in, n_out in (("nearest", 10, 4), ("anyhit", 11, 2),
+                                  ("nearest_multi", 11, 4),
+                                  ("anyhit_multi", 12, 2)):
+            fn = getattr(lib, f"rt795_bvh_{name}")
+            fn.argtypes = [p] * n_in + [i, i] + [p] * n_out
+            fn.restype = i
         _LIB["lib"] = lib
         return lib, time.perf_counter() - t0, log
 
@@ -170,8 +275,10 @@ def _check(name, x, dtype, shape, device):
             f"(contiguous={x.is_contiguous()})")
 
 
-def _kernel_args(tb: TraverseTables, o: Vec3, d: Vec3, int_eps, extra=()):
-    """Validated pointer arguments shared by both kernels."""
+def _kernel_args(tb, o: Vec3, d: Vec3, int_eps, extra=()):
+    """Validated pointer arguments shared by the kernels: (rays, extra
+    per-ray inputs, tables). ``tb`` is a ``TraverseTables`` or a
+    ``MultiTables``; the latter adds its pack offsets after ``miss``."""
     dev = o.x.device
     if dev.type != "cuda":
         raise ValueError(f"the traversal kernels run on CUDA, not {dev}")
@@ -180,20 +287,56 @@ def _kernel_args(tb: TraverseTables, o: Vec3, d: Vec3, int_eps, extra=()):
         _check(name, c, torch.float32, (n,), dev)
     for name, c in extra:
         _check(name, c, torch.float32, (n,), dev)
-    m = tb.n_nodes
+    m = tb.nodes.shape[0]
     _check("nodes", tb.nodes, torch.float32, (m, 8), dev)
     _check("miss", tb.miss, torch.int32, (m,), dev)
+    tables = [tb.nodes, tb.miss]
+    if isinstance(tb, MultiTables):
+        if not 1 <= tb.n_packs <= MAX_PACKS:
+            raise ValueError(f"the multi-pack kernels take 1 to {MAX_PACKS} "
+                             f"packs, got {tb.n_packs}")
+        _check("offsets", tb.offsets, torch.int32, (tb.n_packs + 1,), dev)
+        tables.append(tb.offsets)
     _check("tris", tb.tris, torch.float32, (tb.tris.shape[0], 16), dev)
     _check("int_eps", int_eps, torch.float32, (), dev)
-    rays = [c.data_ptr() for c in (*o, *d)]
-    return rays, [c.data_ptr() for _, c in extra], [
-        tb.nodes.data_ptr(), tb.miss.data_ptr(), tb.tris.data_ptr(),
-        int_eps.data_ptr()]
+    tables += [tb.tris, int_eps]
+    return ([c.data_ptr() for c in (*o, *d)],
+            [c.data_ptr() for _, c in extra],
+            [c.data_ptr() for c in tables])
 
 
-def _raise_on(err: int, name: str):
+def _launch(name: str, *args):
+    """Launch kernel ``rt795_bvh_<name>`` on the current stream; count it."""
+    lib, _, _ = build_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, f"rt795_bvh_{name}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _nearest(name, tb, o: Vec3, d: Vec3, int_eps, size: int):
+    rays, _, tables = _kernel_args(tb, o, d, int_eps)
+    n = o.x.shape[0]
+    key = torch.empty((n,), dtype=torch.float32, device=o.x.device)
+    t = torch.empty_like(key)
+    idx = torch.empty((n,), dtype=torch.int32, device=o.x.device)
+    if n:
+        with torch.cuda.device(o.x.device):
+            _launch(name, *rays, *tables, size, n, key.data_ptr(),
+                    t.data_ptr(), idx.data_ptr())
+    return key, t, idx
+
+
+def _anyhit(name, tb, o: Vec3, d: Vec3, t_cap, int_eps, size: int):
+    rays, (cap,), tables = _kernel_args(tb, o, d, int_eps,
+                                        extra=(("t_cap", t_cap),))
+    n = o.x.shape[0]
+    found = torch.empty((n,), dtype=torch.bool, device=o.x.device)
+    if n:
+        with torch.cuda.device(o.x.device):
+            _launch(name, *rays, cap, *tables, size, n, found.data_ptr())
+    return found
 
 
 def tri_bvh_nearest(tb: TraverseTables, o: Vec3, d: Vec3, int_eps):
@@ -203,22 +346,7 @@ def tri_bvh_nearest(tb: TraverseTables, o: Vec3, d: Vec3, int_eps):
     """
     if o.x.device.type == "cpu":
         return intersect._tri_bvh_candidates(decode(tb), o, d, int_eps)
-    rays, _, tables = _kernel_args(tb, o, d, int_eps)
-    n = o.x.shape[0]
-    key = torch.empty((n,), dtype=torch.float32, device=o.x.device)
-    t = torch.empty_like(key)
-    idx = torch.empty((n,), dtype=torch.int32, device=o.x.device)
-    if n == 0:
-        return key, t, idx
-    lib, _, _ = build_kernels()
-    with torch.cuda.device(o.x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rt795_bvh_nearest(*rays, *tables, tb.n_nodes, n,
-                                    key.data_ptr(), t.data_ptr(),
-                                    idx.data_ptr(), stream)
-    _raise_on(err, "nearest")
-    LAUNCHES["nearest"] += 1
-    return key, t, idx
+    return _nearest("nearest", tb, o, d, int_eps, tb.n_nodes)
 
 
 def tri_bvh_anyhit(tb: TraverseTables, o: Vec3, d: Vec3,
@@ -229,20 +357,31 @@ def tri_bvh_anyhit(tb: TraverseTables, o: Vec3, d: Vec3,
     """
     if o.x.device.type == "cpu":
         return intersect._tri_bvh_anyhit(decode(tb), o, d, t_cap, int_eps)
-    rays, (cap,), tables = _kernel_args(tb, o, d, int_eps,
-                                        extra=(("t_cap", t_cap),))
-    n = o.x.shape[0]
-    found = torch.empty((n,), dtype=torch.bool, device=o.x.device)
-    if n == 0:
-        return found
-    lib, _, _ = build_kernels()
-    with torch.cuda.device(o.x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rt795_bvh_anyhit(*rays, cap, *tables, tb.n_nodes, n,
-                                   found.data_ptr(), stream)
-    _raise_on(err, "anyhit")
-    LAUNCHES["anyhit"] += 1
-    return found
+    return _anyhit("anyhit", tb, o, d, t_cap, int_eps, tb.n_nodes)
+
+
+def tri_bvh_nearest_multi(mt: MultiTables, o: Vec3, d: Vec3, int_eps):
+    """Nearest hit over all packs: (|t| key, t, prim index in the group's
+    order), [N] each; key 3e38 on a miss.
+
+    CPU tensors take the plain per-pack walk. Where two packs hold hits of
+    exactly the same |t|, the plain walk keeps the lower pack and the
+    kernel the pack it reached first; everything else is equal.
+    """
+    if o.x.device.type == "cpu":
+        return intersect._tri_bvh_candidates_multi(decode_multi(mt), o, d,
+                                                   int_eps)
+    return _nearest("nearest_multi", mt, o, d, int_eps, mt.n_packs)
+
+
+def tri_bvh_anyhit_multi(mt: MultiTables, o: Vec3, d: Vec3,
+                         t_cap: torch.Tensor, int_eps) -> torch.Tensor:
+    """Occlusion query over all packs: [N] bool. CPU tensors take the
+    plain per-pack walk."""
+    if o.x.device.type == "cpu":
+        return intersect._tri_bvh_anyhit_multi(decode_multi(mt), o, d, t_cap,
+                                               int_eps)
+    return _anyhit("anyhit_multi", mt, o, d, t_cap, int_eps, mt.n_packs)
 
 
 def reset_launch_counts():

@@ -10,6 +10,14 @@ Per group the path is fixed by the scene alone:
   hand-written kernel of ops/bvh_traverse.py; on CPU tensors it is the
   plain walk of this module (``_tri_bvh_candidates`` / ``_tri_bvh_anyhit``),
   which is also what the kernels are held to;
+- a group cut into packs (``pack_bvhs``) walks every pack: the multi-pack
+  kernels on CUDA tensors, the plain walk over each pack in index order
+  merged by a strict-less |t| key on CPU tensors
+  (``_tri_bvh_candidates_multi`` / ``_tri_bvh_anyhit_multi``);
+- groups that share a ``pack_share`` id (instances of one base mesh) are
+  traced together: their local rays are concatenated into one query of
+  the shared tables (``_pack_clusters``), which gives each group what its
+  own query gives;
 - other triangle groups sweep all triangles (``_tri_candidates``);
 - spheres always sweep (``_sphere_candidates``).
 
@@ -395,14 +403,115 @@ def _tri_bvh_anyhit(tables, o: Vec3, d: Vec3, t_cap: torch.Tensor,
     return found
 
 
+def _tri_bvh_candidates_multi(packs, o: Vec3, d: Vec3, int_eps):
+    """Nearest triangle over a group's packs: the plain walk.
+
+    The JAX package's per-pack fallback (its ops/intersect.py:618-628):
+    each pack walked on its own by ``_tri_bvh_candidates`` (``packs`` are
+    decoded per-pack tables over the group's one triangle table), merged in
+    pack order with a strict-less |t| key.
+    """
+    key, t, idx = _tri_bvh_candidates(packs[0], o, d, int_eps)
+    for pk in packs[1:]:
+        k2, t2, i2 = _tri_bvh_candidates(pk, o, d, int_eps)
+        upd = k2 < key
+        t = torch.where(upd, t2, t)
+        idx = torch.where(upd, i2, idx)
+        key = torch.minimum(key, k2)
+    return key, t, idx
+
+
+def _tri_bvh_anyhit_multi(packs, o: Vec3, d: Vec3, t_cap: torch.Tensor,
+                          int_eps):
+    """Any-hit over a group's packs: the plain walk of each pack, OR-ed
+    (the JAX package's ops/intersect.py:756-760)."""
+    found = torch.zeros_like(o.x, dtype=torch.bool)
+    for pk in packs:
+        found = found | _tri_bvh_anyhit(pk, o, d, t_cap, int_eps)
+    return found
+
+
+def _bvh_nearest(scene: T.Scene, group: T.TraceGroup, o: Vec3, d: Vec3):
+    """(key, t, prim) of a BVH or multi-pack group for local rays."""
+    from raytracer795_tpu_torch.ops import bvh_traverse as bt
+
+    if group.bvh is not None:
+        return bt.tri_bvh_nearest(
+            bt.build_tables(group.bvh, scene.vertices, group.tri_vidx),
+            o, d, scene.int_eps)
+    return bt.tri_bvh_nearest_multi(
+        bt.build_multi_tables(group.pack_bvhs, scene.vertices,
+                              group.tri_vidx), o, d, scene.int_eps)
+
+
+def _bvh_anyhit(scene: T.Scene, group: T.TraceGroup, o: Vec3, d: Vec3,
+                t_cap: torch.Tensor) -> torch.Tensor:
+    """Any-hit of a BVH or multi-pack group for local rays."""
+    from raytracer795_tpu_torch.ops import bvh_traverse as bt
+
+    if group.bvh is not None:
+        return bt.tri_bvh_anyhit(
+            bt.build_tables(group.bvh, scene.vertices, group.tri_vidx),
+            o, d, t_cap, scene.int_eps)
+    return bt.tri_bvh_anyhit_multi(
+        bt.build_multi_tables(group.pack_bvhs, scene.vertices,
+                              group.tri_vidx), o, d, t_cap, scene.int_eps)
+
+
+def _has_bvh(group: T.TraceGroup) -> bool:
+    return group.bvh is not None or group.pack_bvhs is not None
+
+
+def _pack_clusters(scene: T.Scene):
+    """Indices of the groups that share traversal tables (instances of a
+    base mesh: the loader's ``pack_share`` ids), by id, where two or more
+    share them (the JAX package's ops/intersect.py:490-502)."""
+    clusters = {}
+    for gi, group in enumerate(scene.groups):
+        if _has_bvh(group) and group.pack_share >= 0:
+            clusters.setdefault(group.pack_share, []).append(gi)
+    return {s: gis for s, gis in clusters.items() if len(gis) > 1}
+
+
+def _concat_local_rays(scene: T.Scene, gis, rays: Rays):
+    """Each group's local rays, stacked on the lane axis: [G*N] each."""
+    locs = [_transform_rays(scene.groups[gi], rays) for gi in gis]
+    o = Vec3(*(torch.cat([getattr(lc.o, c) for lc in locs]) for c in "xyz"))
+    d = Vec3(*(torch.cat([getattr(lc.d, c) for lc in locs]) for c in "xyz"))
+    return o, d
+
+
+def _batched_nearest(scene: T.Scene, gis, rays: Rays):
+    """One query of the shared tables for every group of a cluster.
+
+    The reference walks instances one after another (src/Helper.cpp:53-73);
+    here the wavefront goes into every instance's local space and the
+    concatenated lanes run once. A lane's result does not depend on the
+    others, so each group gets what its own query gives. Returns [G, N]
+    (key, t, prim).
+    """
+    n = rays.o.x.shape[0]
+    o, d = _concat_local_rays(scene, gis, rays)
+    k, t, i = _bvh_nearest(scene, scene.groups[gis[0]], o, d)
+    g = len(gis)
+    return k.reshape(g, n), t.reshape(g, n), i.reshape(g, n)
+
+
+def _batched_anyhit(scene: T.Scene, gis, rays: Rays, t_cap: torch.Tensor):
+    """Occlusion analogue of ``_batched_nearest``: [G, N] found."""
+    n = rays.o.x.shape[0]
+    o, d = _concat_local_rays(scene, gis, rays)
+    cap = t_cap.repeat(len(gis))
+    return _bvh_anyhit(scene, scene.groups[gis[0]], o, d, cap).reshape(
+        len(gis), n)
+
+
 def trace(scene: T.Scene, rays: Rays) -> Hit:
     """Nearest hit over all groups (world dispatch, src/Helper.cpp:18-80).
 
     Which primitive a ray hits is a discrete decision, so the query runs
     without autograd; ``hit_details`` recomputes the winner's geometry.
     """
-    from raytracer795_tpu_torch.ops import bvh_traverse
-
     with torch.no_grad():
         N = rays.o.x.shape[0]
         dev = rays.o.x.device
@@ -412,19 +521,28 @@ def trace(scene: T.Scene, rays: Rays) -> Hit:
         best_sph = torch.zeros((N,), dtype=torch.bool, device=dev)
         valid = torch.zeros((N,), dtype=torch.bool, device=dev)
 
+        batched = {}
+        for gis in _pack_clusters(scene).values():
+            bk, bt, bi = _batched_nearest(scene, gis, rays)
+            for slot, gi in enumerate(gis):
+                batched[gi] = (bk[slot], bt[slot], bi[slot])
+
         for gi, group in enumerate(scene.groups):
-            local = _transform_rays(group, rays)
+            if gi in batched and not group.n_spheres:
+                local = None        # the cluster's query transformed them
+            else:
+                local = _transform_rays(group, rays)
             g_key = torch.full((N,), _BIG, device=dev)
             g_t = torch.zeros((N,), device=dev)
             g_prim = torch.zeros((N,), dtype=torch.int32, device=dev)
             g_sph = torch.zeros((N,), dtype=torch.bool, device=dev)
             if group.n_tris:
-                if group.bvh is not None:
-                    tables = bvh_traverse.build_tables(
-                        group.bvh, scene.vertices, group.tri_vidx)
-                    tk, tt, tidx = bvh_traverse.tri_bvh_nearest(
-                        tables, _contig(local.o), _contig(local.d),
-                        scene.int_eps)
+                if gi in batched:
+                    tk, tt, tidx = batched[gi]
+                elif _has_bvh(group):
+                    tk, tt, tidx = _bvh_nearest(scene, group,
+                                                _contig(local.o),
+                                                _contig(local.d))
                 else:
                     bbox_ok = _bbox_pass(group, local)
                     tk, tt, tidx = _tri_candidates(scene, group, local,
@@ -457,8 +575,6 @@ def trace_anyhit(scene: T.Scene, rays: Rays, t_cap) -> torch.Tensor:
     negative t mask a real positive-t occluder (src/BVH.cpp:165-171); the
     any-hit reports the occluder.
     """
-    from raytracer795_tpu_torch.ops import bvh_traverse
-
     with torch.no_grad():
         N = rays.o.x.shape[0]
         dev = rays.o.x.device
@@ -466,15 +582,20 @@ def trace_anyhit(scene: T.Scene, rays: Rays, t_cap) -> torch.Tensor:
             torch.as_tensor(t_cap, dtype=torch.float32, device=dev),
             (N,)).contiguous()
         found = torch.zeros((N,), dtype=torch.bool, device=dev)
-        for group in scene.groups:
+        batched = set()
+        for gis in _pack_clusters(scene).values():
+            found = found | torch.any(
+                _batched_anyhit(scene, gis, rays, t_cap), dim=0)
+            batched.update(gis)
+        for gi, group in enumerate(scene.groups):
+            if gi in batched and not group.n_spheres:
+                continue            # traced with its cluster
             local = _transform_rays(group, rays)
-            if group.n_tris:
-                if group.bvh is not None:
-                    tables = bvh_traverse.build_tables(
-                        group.bvh, scene.vertices, group.tri_vidx)
-                    found = found | bvh_traverse.tri_bvh_anyhit(
-                        tables, _contig(local.o), _contig(local.d), t_cap,
-                        scene.int_eps)
+            if group.n_tris and gi not in batched:
+                if _has_bvh(group):
+                    found = found | _bvh_anyhit(scene, group,
+                                                _contig(local.o),
+                                                _contig(local.d), t_cap)
                 else:
                     bbox_ok = _bbox_pass(group, local)
                     k, t, _ = _tri_candidates(scene, group, local, bbox_ok)

@@ -94,8 +94,9 @@ def scene_stats(scene: T.Scene) -> dict:
     nodes = 0
     table_bytes = 0
     for g in scene.groups:
-        if g.bvh is not None:
-            m = int(g.bvh.first.shape[0])
+        flats = (g.bvh,) if g.bvh is not None else g.pack_bvhs or ()
+        if flats:
+            m = sum(int(f.first.shape[0]) for f in flats)
             nodes += m
             # ops/bvh_traverse.py: 32 B + 4 B a node, 64 B a triangle
             table_bytes += 36 * m + 64 * g.n_tris
@@ -107,6 +108,7 @@ def scene_stats(scene: T.Scene) -> dict:
         "renderer": scene.renderer, "max_depth": int(scene.max_depth),
         "tris": int(tris), "spheres": int(spheres),
         "groups": len(scene.groups), "bvh_nodes": int(nodes),
+        "packs": sum(len(g.pack_bvhs or ()) for g in scene.groups),
         "traverse_table_mb": round(table_bytes / 1e6, 2),
         "lights": n_lights, "textures": int(scene.n_textures),
     }

@@ -3,13 +3,16 @@
 Counterpart of ``raytracer795_tpu/scene/loader.py``: the parse pipeline of
 src/Parser.h:16-1316 (defaults, 1-based index conventions, the carried-over
 TextureMap parser state, the ``textureOffset - vertexOffset`` mesh quirk,
-PLY loading with quad split). Parsing and BVH builds are host numpy, with
-the same BVH, primitive order and prim ids as the JAX package; the
+PLY loading with quad split). Parsing and BVH builds are host numpy; the
 finished scene's leaves become tensors on ``device`` once, at the end.
 
-A group of at least ``bvh_min_tris`` triangles gets one ``FlatBVH`` of any
-size: the CUDA kernels walk it from device memory, so there is no
-counterpart of the JAX package's VMEM packs or their 120k-triangle split.
+A group of at least ``bvh_min_tris`` triangles gets one ``FlatBVH``, and a
+group of more than ``single_pack_max`` triangles is cut into Morton packs
+of ``pack_tris`` triangles with one ``FlatBVH`` each (``pack_bvhs``), as
+the JAX loader cuts it (its loader.py:575-624). The cut fixes the triangle
+order and prim ids, so for every scene both loaders load, the groups carry
+the same BVHs, primitive order, prim ids and ``pack_share`` ids. The JAX
+loader's 128-lane TPU tables are not built.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from raytracer795_tpu_torch.scene import types as T
 from raytracer795_tpu_torch.scene.ply import read_ply
 
 BVH_MIN_TRIS = 1024
+SINGLE_PACK_MAX = 120_000
 
 
 # --------------------------------------------------------------------------
@@ -145,12 +149,18 @@ def _load_image(path: str) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 def load_scene(xml_path: str, device,
-               bvh_min_tris: int = BVH_MIN_TRIS) -> T.LoadedScene:
+               bvh_min_tris: int = BVH_MIN_TRIS,
+               single_pack_max: int = SINGLE_PACK_MAX,
+               pack_tris: int = bvh_mod.PACK_TRIS,
+               pack_leaf: int = bvh_mod.PACK_LEAF) -> T.LoadedScene:
     """Load a reference-contract XML scene onto ``device``.
 
     ``bvh_min_tris``: groups with at least this many triangles get a flat
     BVH (ops/bvh.py) and leaf-contiguous primitive order; smaller groups use
-    the vectorized linear scan.
+    the vectorized linear scan. Groups of more than ``single_pack_max``
+    triangles are cut into packs of ``pack_tris`` with leaves of up to
+    ``pack_leaf`` (``bvh_mod.build_multipack``). The three are the JAX
+    package's ``RT795_SINGLE_PACK_MAX``, ``PACK_TRIS`` and ``PACK_LEAF``.
     """
     device = torch.device(device)
     tree = ET.parse(xml_path)
@@ -580,28 +590,43 @@ def load_scene(xml_path: str, device,
     _bvh_cache: Dict = {}
 
     def maybe_bvh(tri, cache_key=None):
+        """(tri in BVH order, FlatBVH or None, pack FlatBVHs or None)."""
         n = len(tri["tri_vidx"])
         if n < max(bvh_min_tris, 2):
-            return tri, None
+            return tri, None, None
         cached = _bvh_cache.get(cache_key) if cache_key is not None else None
         if cached is None:
-            pbmin, pbmax = bvh_mod.tri_bounds(vertices, tri["tri_vidx"])
-            cached = bvh_mod.build(pbmin, pbmax)
+            if n <= single_pack_max:
+                pbmin, pbmax = bvh_mod.tri_bounds(vertices, tri["tri_vidx"])
+                flat, perm = bvh_mod.build(pbmin, pbmax)
+                cached = (flat, perm, None)
+            else:
+                perm, packs = bvh_mod.build_multipack(
+                    vertices, tri["tri_vidx"], pack_tris, pack_leaf)
+                cached = (None, perm, packs)
             if cache_key is not None:
                 _bvh_cache[cache_key] = cached
-        flat, perm = cached
+        flat, perm, packs = cached
         tri = {k: v[perm] for k, v in tri.items()}
-        return tri, flat
+        return tri, flat, packs
+
+    # pack-share ids: groups built from the same bvh_key share identical
+    # traversal tables; the wavefront dispatch traces them in one launch
+    _share_ids: Dict = {}
 
     def make_group(name, tri, sph, matrix, blur, has_xform, obj_bbox=None,
                    bvh_key=None):
-        tri, flat_bvh = maybe_bvh(tri, bvh_key)
+        tri, flat_bvh, pack_bvhs = maybe_bvh(tri, bvh_key)
         minv = np.linalg.inv(matrix) if has_xform else np.eye(4)
         minv_t = np.linalg.inv(matrix).T if has_xform else np.eye(4)
         if obj_bbox is None or len(obj_bbox) == 0:
             obj_bbox = np.zeros((0, 2, 3), np.float32)
         else:
             obj_bbox = np.asarray(obj_bbox, np.float32).reshape(-1, 2, 3)
+        pack_share = -1
+        if (flat_bvh is not None or pack_bvhs is not None) \
+                and bvh_key is not None:
+            pack_share = _share_ids.setdefault(bvh_key, len(_share_ids))
         return T.TraceGroup(
             **{k: v for k, v in tri.items()},
             **{k: v for k, v in sph.items()},
@@ -611,7 +636,7 @@ def load_scene(xml_path: str, device,
             name=name, has_xform=has_xform,
             has_blur=bool(np.any(np.asarray(blur, np.float32) != 0.0)),
             n_tris=len(tri["tri_vidx"]), n_spheres=len(sph["sph_cidx"]),
-            bvh=flat_bvh,
+            bvh=flat_bvh, pack_bvhs=pack_bvhs, pack_share=pack_share,
         )
 
     # merged static group
@@ -812,6 +837,6 @@ def load_scene(xml_path: str, device,
         texture_statics=tuple((t.decal, t.interp, t.ttype, t.nc) for t in textures),
     )
     # every leaf moves to the device once; instances keep sharing their
-    # base mesh's FlatBVH tensors
+    # base mesh's FlatBVH tensors (single or packs)
     return T.LoadedScene(scene=T.to_device(scene, device), cameras=cameras,
                          path=xml_path)

@@ -3,10 +3,10 @@
 Counterpart of ``raytracer795_tpu/scene/types.py``. The JAX package keeps
 the scene as a pytree with static metadata; here the same fields are plain
 dataclasses whose array leaves are torch tensors on one device, and whose
-structural facts (counts, flags) are Python values. The TPU table layouts
-of that package (``bvh_pack``, ``pack_bvhs``, ``pack_share``) have no
-counterpart: the CUDA kernels build their tables from ``FlatBVH`` and the
-live vertices (ops/bvh_traverse.py).
+structural facts (counts, flags) are Python values. The TPU table layout
+of that package (``bvh_pack``) has no counterpart: the CUDA kernels build
+their tables from the ``FlatBVH``s (``bvh`` or ``pack_bvhs``) and the live
+vertices (ops/bvh_traverse.py).
 
 Index conventions: all indices are 0-based (the loader converts the XML's
 1-based ones once).
@@ -142,6 +142,12 @@ class TraceGroup:
     has_blur: bool = False
     # flat BVH over the triangles (groups of >= bvh_min_tris), else None
     bvh: Any = None
+    # groups over the loader's single_pack_max: one FlatBVH per Morton pack,
+    # ``first`` offset to the group's triangle order (``bvh`` is None then)
+    pack_bvhs: Any = None
+    # groups built from one base mesh share an id (their tables are equal),
+    # -1 when the group shares nothing
+    pack_share: int = -1
 
 
 @dataclasses.dataclass

@@ -96,7 +96,8 @@ def test_instances_share_one_bvh():
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Rendering through the port leaves jax and the JAX package unloaded."""
+    """Rendering through the port leaves jax and the JAX package unloaded,
+    for a brute-force scene and for a multi-packed rock6k."""
     code = f"""
 import sys
 import numpy as np
@@ -104,6 +105,12 @@ import raytracer795_tpu_torch as rt
 from raytracer795_tpu_torch import render
 ld = rt.load_scene({os.path.join(conftest.SCENES, 'simple.xml')!r}, "cpu")
 ld.cameras[0].nx = ld.cameras[0].ny = 16
+img = render.render_camera(ld, 0, ldr=True)
+assert img.shape == (16, 16, 3) and img.max() > 0
+ld = rt.load_scene({rock6k_xml(tmp_path, 16)!r}, "cpu",
+                   single_pack_max=2000, pack_tris=2048)
+assert ld.scene.groups[0].bvh is None
+assert len(ld.scene.groups[0].pack_bvhs) == 4
 img = render.render_camera(ld, 0, ldr=True)
 assert img.shape == (16, 16, 3) and img.max() > 0
 bad = [m for m in sys.modules

@@ -5,11 +5,12 @@ are the oracles ``tests/test_pallas.py`` holds the Pallas kernels to; here
 the port's plain walks (what its CUDA kernels are held to on the card) are
 held to them, over the same FlatBVH and the same rays. Hit masks and prim
 ids must be equal; t within rtol = atol = 2e-5 (the oracle's XLA fusion
-reassociates a few ulp, as tests/test_pallas.py notes). The kernel itself
-runs only on a CUDA device: its test carries the ``cuda`` marker, and as
-this module imports jax only inside the oracle, it runs on a card without
-jax: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
-tests/test_torch_traverse.py``.
+reassociates a few ulp, as tests/test_pallas.py notes). The kernels
+themselves run only on a CUDA device: their tests carry the ``cuda``
+marker and hold the single-pack and multi-pack kernels against the plain
+walks on the card. As this module imports jax only inside the oracle, they
+run on a card without jax: ``python -m pytest --noconftest -p
+no:cacheprovider -m cuda tests/test_torch_traverse.py``.
 """
 
 import numpy as np
@@ -189,6 +190,32 @@ def test_tables_decode_to_bvh_and_triangles():
     np.testing.assert_array_equal(tb.tris[:, 3::4].numpy(), 0.0)
 
 
+def test_node_tables_made_once_per_build():
+    """Node tables are made once per build (one BVH or a group's packs);
+    the triangle rows follow the live vertices on every call."""
+    from raytracer795_tpu_torch.ops import bvh, bvh_traverse
+    from raytracer795_tpu_torch.scene.types import to_device
+
+    verts, tri_vidx = _random_mesh(600, 5)
+    moved = torch.from_numpy(verts + np.float32(0.25))
+    flat, tv = _build(verts, tri_vidx)
+    perm, packs = bvh.build_multipack(verts, tri_vidx, pack_tris=128)
+    for build, host_tree, tv_t in (
+            (bvh_traverse.build_tables, flat, torch.from_numpy(tv)),
+            (bvh_traverse.build_multi_tables, packs,
+             torch.from_numpy(tri_vidx[perm]))):
+        tree = to_device(host_tree, "cpu")
+        tb = build(tree, torch.from_numpy(verts), tv_t)
+        again = build(tree, moved, tv_t)
+        assert again.nodes is tb.nodes and again.miss.equal(tb.miss)
+        np.testing.assert_array_equal(
+            again.tris[:, :3].numpy(), moved[tv_t[:, 0].long()].numpy())
+        # another build of the same tree gets tables of its own
+        fresh = build(to_device(host_tree, "cpu"), moved, tv_t)
+        assert fresh.nodes is not tb.nodes
+        assert fresh.nodes.equal(tb.nodes)
+
+
 def test_numpy_builder_gives_native_hits():
     """The numpy builder and the native builder give the same hits."""
     from raytracer795_tpu_torch import native
@@ -224,3 +251,59 @@ def test_kernels_match_plain_walks_on_card(t, n, seed):
     ref = _port(flat, verts, tv, o, d, cap, device="cpu")
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
+
+
+def _port_multi(packs, verts, tv, o, d, cap, device):
+    """The port's multi-pack wrappers (plain per-pack walks on CPU, the
+    kernels on CUDA): (key, t, idx, found) and the decoded packs."""
+    from raytracer795_tpu_torch.ops import bvh_traverse
+    from raytracer795_tpu_torch.scene.types import to_device
+    from raytracer795_tpu_torch.utils.vec3 import Vec3
+
+    def col(a):
+        return Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                      .to(device) for k in range(3)))
+
+    mt = bvh_traverse.build_multi_tables(
+        to_device(packs, device), torch.from_numpy(verts).to(device),
+        torch.from_numpy(tv).to(device))
+    eps = torch.tensor(EPS, dtype=torch.float32, device=device)
+    key, t, idx = bvh_traverse.tri_bvh_nearest_multi(mt, col(o), col(d), eps)
+    found = bvh_traverse.tri_bvh_anyhit_multi(
+        mt, col(o), col(d), torch.from_numpy(cap).to(device), eps)
+    return tuple(x.cpu().numpy() for x in (key, t, idx, found))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,seed,pack_tris", [(600, 4096, 2, 128),
+                                                (4096, 8192, 3, 512)])
+def test_multi_kernels_match_plain_walks_on_card(t, n, seed, pack_tris):
+    """The multi-pack kernels against the plain per-pack walks: masks,
+    |t| keys and any-hit answers equal; ids and t equal except at exact
+    |t| ties between packs, where both ids name triangles at that |t|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from raytracer795_tpu_torch.ops import bvh
+
+    verts, tri_vidx = _random_mesh(t, seed)
+    perm, packs = bvh.build_multipack(verts, tri_vidx, pack_tris=pack_tris)
+    assert len(packs) >= 4
+    tv = tri_vidx[perm]
+    o, d = _random_rays(n, seed + 10)
+    cap = np.random.default_rng(seed + 20).uniform(0.1, 5.0, n).astype(
+        np.float32)
+    key, t_, idx, found = _port_multi(packs, verts, tv, o, d, cap, "cuda")
+    rk, rt, ridx, rfound = _port_multi(packs, verts, tv, o, d, cap, "cpu")
+    np.testing.assert_array_equal(key, rk)
+    np.testing.assert_array_equal(found, rfound)
+    hit = key < 1e38
+    same = hit & (idx == ridx)
+    np.testing.assert_array_equal(t_[same], rt[same])
+    a, b, c = (verts[tv[:, k]].astype(np.float64) for k in range(3))
+    for lane in np.nonzero(hit & ~same)[0]:
+        for j in (idx[lane], ridx[lane]):
+            # the triangle's plane meets the ray at the lane's |t|
+            n_ = np.cross(b[j] - a[j], c[j] - a[j])
+            tj = n_ @ (a[j] - o[lane]) / (n_ @ d[lane])
+            np.testing.assert_allclose(abs(tj), key[lane], rtol=1e-4)
+    assert hit.any() and found.any()
