@@ -40,17 +40,44 @@ non-zero and prints no result:
    multi-pack kernels vs their plain versions on its two wavefronts, the
    single-pack kernels over one BVH of the same triangles (a probe), and
    instances_rock frames with batched against per-group launches.
+10. rng: ``utils/rng`` on the card gives the bits it gives on the CPU, and
+   the literal ``jax.random`` values of tests/test_torch_rng.py.
+11. multi-sample main path: ``render_scene`` of rock100k at 800x800 and
+   4 spp (bench_mesh.py's configuration) with the launch counters reset
+   just before and read just after; both single-pack kernels launched and
+   no plain walk called; 8x8-pooled means within 3 of the 1-spp golden
+   (the frame averaged 2x2 to its 400x400); frame median of 5 and one
+   profiled frame (kernel launches, device time, RNG draws).
+12. stochastic goldens: arealight, motionblur and distributed at their own
+   resolution and spp, at tests/test_golden.py:45-50's bounds.
+13. path tracer, Cornell: tests/scenes/cornellbox_pt.xml at 800x800, 4 spp,
+   depth 6 with NEE and importance sampling (bench.py's configuration):
+   frame median of 5, gross rays/s (bench.py:47-56), one profiled frame.
+14. path tracer, analytic: the furnace closed form and the NEE floor-point
+   integral of tests/test_path_tracer.py:43-80.
+15. path tracer through the kernels: ``render_scene`` of
+   tests/scenes/rock100k_pt.xml at 400x400 and 4 spp with the counters
+   reset just before and read just after (both single-pack kernels
+   launched, no plain walk); the kernels vs their plain walks on the
+   first diffuse-bounce wavefront and the first NEE wavefront with its
+   per-ray caps, with their times; its frame median of 5; and a 64x64,
+   2-spp frame rendered twice, once through the kernels and once with the
+   wrappers swapped for the plain walks: the LDR frames must be equal.
 
-The last three lines are the card, the kernels' JSON record and the result
-line; the wall time is printed on an earlier line. It imports nothing of
-jax or of the JAX package.
+The ``kernels`` line's launch counts are summed over the main paths that
+run each kernel (phases 4, 7, 8, 11 and 15, each counted from 0). The last
+three lines are the card, the kernels' JSON record and the result line;
+the wall time is printed on an earlier line. It imports nothing of jax or
+of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -73,6 +100,22 @@ FRAME_REPS = 5
 GOLDEN_BOUNDS = (("simple", 0.01, 0.001), ("cornellbox", 0.01, 0.001),
                  ("brdfs", 0.01, 0.001), ("lights", 0.01, 0.001),
                  ("transforms", 0.2, 0.01), ("instances", 0.2, 0.01))
+# jax.random under jax 0.9.0, as tests/test_torch_rng.py holds them against
+# jax itself: PRNGKey(0), fold_in(PRNGKey(0), 3) and the uint32 views of
+# uniform(fold_in(PRNGKey(0), 3), (2, 5))
+RNG_KEY0 = (0, 0)
+RNG_KEY0_FOLD3 = (2467461003, 3840466878)
+RNG_UNIFORM_2x5_BITS = [[1049146072, 1060889640, 1064576818, 1045860880,
+                         1007892352],
+                        [1062247070, 1064149282, 1049439860, 1063452586,
+                         1064178726]]
+# (scene, mean tol, p99 tol) of tests/test_golden.py:45-50
+STOCHASTIC_BOUNDS = (("arealight", 2.0, 12.0), ("motionblur", 2.0, 12.0),
+                     ("distributed", 2.5, 14.0))
+MS_RES, MS_SPP = 800, 4     # bench_mesh.py's and bench.py's frames
+PT_RES, PT_SPP = 400, 4     # rock100k_pt's main path
+PLAIN_WALKS = ("_tri_bvh_candidates", "_tri_bvh_anyhit",
+               "_tri_bvh_candidates_multi", "_tri_bvh_anyhit_multi")
 REPLACES = {name: f"raytracer795_tpu/ops/pallas_bvh.py:{line}"
             for name, line in (("nearest", 335), ("anyhit", 404),
                                ("nearest_multi", 767),
@@ -276,6 +319,72 @@ def rock_wavefronts(loaded):
     return rays, shadow, cap
 
 
+@contextlib.contextmanager
+def counting(module, names):
+    """Count calls of ``module``'s functions ``names`` while inside."""
+    calls = dict.fromkeys(names, 0)
+    saved = {name: getattr(module, name) for name in names}
+
+    def counted(name):
+        def call(*args):
+            calls[name] += 1
+            return saved[name](*args)
+        return call
+    for name in names:
+        setattr(module, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def profile_launches(fn):
+    """(kernels run, device kernel ms) of ``fn()`` under torch.profiler,
+    tracing the card only (a CPU trace of every eager op costs the host
+    more than the frame itself)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    kernel_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+                    for e in kernels)
+    return sum(e.count for e in kernels), kernel_us / 1e3
+
+
+def profile_frame(render, ld, median_s, draw_s):
+    """One LDR frame (after a warm-up) traced on the card: kernels run and
+    device kernel time, the device's busy share of the unprofiled median
+    frame, and the RNG's draws with their estimated share of that frame
+    (draws x the host seconds of one band-sized draw)."""
+    from raytracer795_tpu_torch.utils import rng
+
+    draws = [0]
+    uniform = rng.uniform
+
+    def counted(*args):
+        draws[0] += 1
+        return uniform(*args)
+    rng.uniform = counted
+    try:
+        render.render_camera(ld, 0, ldr=True)
+        draws[0] = 0
+        kernels, kernel_ms = profile_launches(
+            lambda: render.render_camera(ld, 0, ldr=True))
+    finally:
+        rng.uniform = uniform
+    return {"kernels_run": kernels, "kernel_ms": kernel_ms,
+            "busy_share_of_median": kernel_ms / 1e3 / median_s,
+            "rng_draws": draws[0],
+            "rng_share_of_median_est": draws[0] * draw_s / median_s}
+
+
 def frame_times(render, ld, reps=FRAME_REPS):
     """Host seconds of ``reps`` LDR frames after one warm-up frame."""
     render.render_camera(ld, 0, ldr=True)
@@ -289,19 +398,282 @@ def frame_times(render, ld, reps=FRAME_REPS):
     return secs
 
 
-def main_path(render, bt, loaded, name):
+def main_path(render, bt, loaded, name, spp=None):
     """``render_scene`` with every launch counter reset just before and
     read just after; returns (seconds, launches, LDR frame)."""
     os.makedirs(OUT, exist_ok=True)
     bt.reset_launch_counts()
     t0 = time.perf_counter()
-    (png,) = render.render_scene(loaded, OUT)
+    (png,) = render.render_scene(loaded, OUT, spp=spp)
     seconds = time.perf_counter() - t0
     launches = dict(bt.LAUNCHES)
     img = png_pixels(png).astype(np.float32)
     check(img.shape == (loaded.cameras[0].ny, loaded.cameras[0].nx, 3),
           f"{name} frame shape {img.shape}")
     return seconds, launches, img
+
+
+def rng_phase(dev):
+    """Phase 10; returns the kernel launches of one draw."""
+    from raytracer795_tpu_torch.utils import rng
+
+    key = rng.PRNGKey(0)
+    k3 = rng.fold_in(key, 3)
+    check(key == RNG_KEY0 and k3 == RNG_KEY0_FOLD3,
+          f"keys {key}, {k3} differ from jax.random's")
+    bits = rng.uniform(k3, (2, 5), dev).cpu().numpy().view(np.uint32)
+    check(np.array_equal(bits, RNG_UNIFORM_2x5_BITS),
+          f"uniform (2, 5) on the card differs from jax.random's: {bits}")
+    k = rng.fold_in(rng.fold_in(rng.PRNGKey(11), 5), 2)
+    shapes = ((1,), (2, 3), (5, 7, 3), (3, 23, 1000), (6, 204800))
+    for shape in shapes:
+        check(torch.equal(rng.random_bits(k, shape, dev).cpu(),
+                          rng.random_bits(k, shape, "cpu")),
+              f"random bits of {shape} differ between the card and the CPU")
+        check(torch.equal(rng.uniform(k, shape, dev).cpu().view(torch.int32),
+                          rng.uniform(k, shape, "cpu").view(torch.int32)),
+              f"uniform {shape} differs between the card and the CPU")
+    per_draw, draw_ms = profile_launches(
+        lambda: rng.uniform(k, (6, 204800), dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        rng.uniform(k, (6, 204800), dev)
+    torch.cuda.synchronize()
+    draw_s = (time.perf_counter() - t0) / 20
+    phase("rng", literals_equal=True, card_equals_cpu=True,
+          shapes=[list(sh) for sh in shapes], kernels_per_draw=per_draw,
+          draw_6x204800_device_ms=draw_ms, draw_6x204800_host_s=draw_s)
+    return per_draw, draw_s
+
+
+def multisample_phase(render, bt, intersect, load_scene, read_ppm, dev, card,
+                      per_draw, draw_s):
+    """Phase 11; returns the main path's launch counts."""
+    ms = load_scene(os.path.join(SCENES, "rock100k.xml"), dev)
+    ms.cameras[0] = render.with_spp(dataclasses.replace(
+        ms.cameras[0], nx=MS_RES, ny=MS_RES), MS_SPP)
+    with counting(intersect, PLAIN_WALKS) as plain:
+        ms_s, launches, img = main_path(render, bt, ms, "rock100k", MS_SPP)
+    check(launches["nearest"] > 0 and launches["anyhit"] > 0,
+          f"rock100k at {MS_SPP} spp launched both kernels: {launches}")
+    check(not any(plain.values()), f"plain walks were called: {plain}")
+    gold = read_ppm(os.path.join(GOLDENS, "rock100k.ppm"))
+    g, k = gold.shape[0], MS_RES // gold.shape[0]
+    half = img.reshape(g, k, g, k, 3).mean(axis=(1, 3))   # to the golden's
+
+    def pool(a):
+        return a.reshape(g // 8, 8, g // 8, 8, 3).mean(axis=(1, 3))
+    pooled = float(np.abs(pool(half) - pool(gold)).mean())
+    check(pooled < 3.0, f"rock100k {MS_SPP} spp pooled mean |d| {pooled}")
+    phase("main_path", scene="rock100k", res=MS_RES, spp=MS_SPP,
+          seconds=ms_s, launches=launches, plain_walk_calls=plain,
+          golden_pooled8_mean_abs=pooled)
+    secs = frame_times(render, ms)
+    med = statistics.median(secs)
+    phase("frame_time", scene="rock100k", res=MS_RES, spp=MS_SPP,
+          median_s=med, samples_s=secs,
+          gross_rays=render.gross_rays(ms.scene, ms.cameras[0]), card=card)
+    prof = profile_frame(render, ms, med, draw_s)
+    phase("profile", scene="rock100k", res=MS_RES, spp=MS_SPP,
+          rng_kernels=prof["rng_draws"] * per_draw, **prof, card=card)
+    return launches
+
+
+def stochastic_phase(render, load_scene, read_ppm, dev):
+    """Phase 12."""
+    for name, mean_tol, p99_tol in STOCHASTIC_BOUNDS:
+        ld = load_scene(os.path.join(SCENES, name + ".xml"), dev)
+        img = render.render_camera(ld, 0, ldr=True).astype(np.float32)
+        diff = np.abs(img - read_ppm(os.path.join(GOLDENS, name + ".ppm")))
+        mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
+        check(mean < mean_tol and p99 < p99_tol,
+              f"{name} golden: mean {mean}, p99 {p99}")
+        cam = ld.cameras[0]
+        phase("stochastic_golden", scene=name, res=[cam.nx, cam.ny],
+              spp=cam.num_samples, mean_abs=mean, p99=p99)
+
+
+def cornell_phase(render, load_scene, dev, card, per_draw, draw_s):
+    """Phase 13."""
+    pt = load_scene(os.path.join(SCENES, "cornellbox_pt.xml"), dev)
+    pt.cameras[0] = render.with_spp(dataclasses.replace(
+        pt.cameras[0], nx=MS_RES, ny=MS_RES), MS_SPP)
+    rays = render.gross_rays(pt.scene, pt.cameras[0])
+    check(rays == 30_720_000, f"Cornell gross rays {rays}")
+    secs = frame_times(render, pt)
+    med = statistics.median(secs)
+    phase("frame_time", scene="cornellbox_pt", res=MS_RES, spp=MS_SPP,
+          depth=pt.scene.max_depth, median_s=med, samples_s=secs,
+          gross_rays=rays, gross_rays_per_s=rays / med, card=card)
+    prof = profile_frame(render, pt, med, draw_s)
+    phase("profile", scene="cornellbox_pt", res=MS_RES, spp=MS_SPP,
+          rng_kernels=prof["rng_draws"] * per_draw, **prof, card=card)
+
+
+def analytic_phase(render, load_scene, dev):
+    """Phase 14: tests/test_path_tracer.py:43-80 on the card."""
+    fl = load_scene(os.path.join(SCENES, "furnace.xml"), dev)
+    img = render.render_camera(fl, 0, spp=256)
+    block = img[12:20, 12:20].mean(axis=(0, 1))
+    corner = img[1, 1]
+    check(np.allclose(block, 1.0, rtol=0.04), f"furnace block {block}")
+    check(np.allclose(corner, 2.0, rtol=0.02), f"furnace corner {corner}")
+
+    src = open(os.path.join(SCENES, "cornellbox_pt.xml")).read()
+    src = re.sub(r"<MaxRecursionDepth>\d+</MaxRecursionDepth>",
+                 "<MaxRecursionDepth>1</MaxRecursionDepth>", src)
+    os.makedirs(OUT, exist_ok=True)
+    path = os.path.join(OUT, "cornellbox_pt_depth1.xml")
+    with open(path, "w") as f:
+        f.write(src)
+    img = render.render_camera(load_scene(path, dev), 0, spp=128)
+    seeded = np.random.default_rng(0)
+    cam = np.array([0, 1, 3.8])
+    v = 1 - (60.5 / 100) * 2
+    d = np.array([0, v, -1.0])
+    d /= np.linalg.norm(d)
+    p = cam + ((0 - cam[1]) / d[1]) * d
+    m = 200000
+    lp = np.stack([seeded.uniform(-0.6, 0.6, m), np.full(m, 1.999),
+                   seeded.uniform(-0.6, 0.2, m)], 1)
+    to_l = lp - p
+    d2 = (to_l ** 2).sum(1)
+    wi = to_l / np.sqrt(d2)[:, None]
+    geom = np.maximum(0, wi[:, 1]) * np.abs(wi[:, 1]) / d2
+    expected = np.array([18, 17, 14.0]) * (0.7 / np.pi) * geom.mean() * 0.96
+    got = img[60, 50]
+    check(np.allclose(got, expected, rtol=0.15),
+          f"NEE floor point {got} against {expected}")
+    phase("path_tracer_analytic", furnace_block=block.tolist(),
+          furnace_corner=corner.tolist(), nee_pixel=got.tolist(),
+          nee_expected=expected.tolist())
+
+
+def live_lanes(d) -> int:
+    """Lanes with a nonzero direction (zero retires a lane)."""
+    return int(((d.x != 0) | (d.y != 0) | (d.z != 0)).sum())
+
+
+def capture_pt_wavefronts(render, bt, loaded):
+    """Render ``loaded`` once more, recording every traversal query, and
+    return the first diffuse-bounce wavefront (the nearest query after a
+    band's primary one) and the first NEE wavefront (the band's first
+    any-hit query: object-light NEE comes before the point lights) of the
+    bands where they have the most live lanes: (tb, o, d, eps) and
+    (tb, o, d, cap, eps)."""
+    nearest, anyhit = bt.tri_bvh_nearest, bt.tri_bvh_anyhit
+    calls = []
+
+    def rec_nearest(tb, o, d, eps):
+        calls.append(("nearest", (tb, o, d, eps)))
+        return nearest(tb, o, d, eps)
+
+    def rec_anyhit(tb, o, d, cap, eps):
+        calls.append(("anyhit", (tb, o, d, cap, eps)))
+        return anyhit(tb, o, d, cap, eps)
+    bt.tri_bvh_nearest, bt.tri_bvh_anyhit = rec_nearest, rec_anyhit
+    try:
+        render.render_camera(loaded, 0, spp=PT_SPP, ldr=True)
+    finally:
+        bt.tri_bvh_nearest, bt.tri_bvh_anyhit = nearest, anyhit
+    bounces, nees = [], []
+    for i, (kind, args) in enumerate(calls):
+        o = args[1]
+        primary = kind == "nearest" and all(
+            bool((c == c[0]).all()) for c in o)     # every lane at the eye
+        if not primary:
+            continue
+        after = calls[i + 1:]
+        bounces += [a for k, a in after if k == "nearest"][:1]
+        nees += [a for k, a in after if k == "anyhit"][:1]
+    check(bounces and nees, "no bounce or NEE wavefront was recorded")
+    return (max(bounces, key=lambda a: live_lanes(a[2])),
+            max(nees, key=lambda a: live_lanes(a[2])))
+
+
+def rock_pt_phase(render, bt, intersect, load_scene, dev, card):
+    """Phase 15; returns (launches, max |dt|, any-hit mismatches)."""
+    xml = os.path.join(SCENES, "rock100k_pt.xml")
+    rp = load_scene(xml, dev)
+    (group,) = rp.scene.groups
+    check(group.bvh is not None and group.n_spheres == 1
+          and len(rp.scene.sphere_lights) == 1,
+          "rock100k_pt is one BVH group with its sphere light")
+    with counting(intersect, PLAIN_WALKS) as plain:
+        pt_s, launches, img = main_path(render, bt, rp, "rock100k_pt",
+                                        PT_SPP)
+    check(launches["nearest"] > 0 and launches["anyhit"] > 0,
+          f"rock100k_pt launched both kernels: {launches}")
+    check(not any(plain.values()), f"plain walks were called: {plain}")
+    check(img.shape == (PT_RES, PT_RES, 3) and 0 < img.mean() < 255,
+          f"rock100k_pt frame mean {img.mean()}")
+    phase("main_path", scene="rock100k_pt", res=PT_RES, spp=PT_SPP,
+          seconds=pt_s, launches=launches, plain_walk_calls=plain,
+          frame_mean=float(img.mean()))
+
+    bounce, nee = capture_pt_wavefronts(render, bt, rp)
+    errs, mism, times = [], [], {}
+    tb, o, d, eps = bounce
+    live = live_lanes(d)
+    err, bad, hits, occ = compare(bt, tb, o, d,
+                                  torch.full_like(o.x, 3.0e38), eps)
+    errs.append(err)
+    mism.append(bad)
+    phase("kernel_vs_plain", case="rock100k_pt first diffuse-bounce "
+          "wavefront of its fullest band", rays=o.x.shape[0], live=live,
+          max_abs_t_err=err, anyhit_mismatches=bad, hits=hits, occluded=occ)
+    dec = bt.decode(tb)
+    times["nearest"] = (
+        cuda_ms(lambda: bt.tri_bvh_nearest(tb, o, d, eps), 20),
+        cuda_ms(lambda: intersect._tri_bvh_candidates(dec, o, d, eps), 1))
+    tb, o, d, cap, eps = nee
+    live = live_lanes(d)
+    err, bad, hits, occ = compare(bt, tb, o, d, cap, eps)
+    errs.append(err)
+    mism.append(bad)
+    phase("kernel_vs_plain", case="rock100k_pt first NEE wavefront of its "
+          "fullest band, per-ray caps", rays=o.x.shape[0], live=live,
+          max_abs_t_err=err, anyhit_mismatches=bad, hits=hits, occluded=occ)
+    times["anyhit"] = (
+        cuda_ms(lambda: bt.tri_bvh_anyhit(tb, o, d, cap, eps), 20),
+        cuda_ms(lambda: intersect._tri_bvh_anyhit(dec, o, d, cap, eps), 1))
+    for name, wave in (("nearest", "diffuse bounce"), ("anyhit", "NEE")):
+        phase("kernel_time", kernel=name,
+              wavefront=f"rock100k_pt {PT_RES}x{PT_RES} {PT_SPP} spp first "
+              f"{wave}", kernel_ms=times[name][0], plain_ms=times[name][1],
+              card=card)
+
+    rp.cameras[0] = render.with_spp(rp.cameras[0], PT_SPP)
+    secs = frame_times(render, rp)
+    phase("frame_time", scene="rock100k_pt", res=PT_RES, spp=PT_SPP,
+          median_s=statistics.median(secs), samples_s=secs,
+          gross_rays=render.gross_rays(rp.scene, rp.cameras[0]), card=card)
+
+    # kernel = plain: one small frame through each, same RNG
+    nearest, anyhit = bt.tri_bvh_nearest, bt.tri_bvh_anyhit
+    small = load_scene(xml, dev)
+    small.cameras[0] = dataclasses.replace(small.cameras[0], nx=64, ny=64)
+    through_kernels = render.render_camera(small, 0, spp=2, ldr=True)
+    bt.tri_bvh_nearest = lambda tb, o, d, eps: intersect._tri_bvh_candidates(
+        bt.decode(tb), o, d, eps)
+    bt.tri_bvh_anyhit = lambda tb, o, d, cap, eps: intersect._tri_bvh_anyhit(
+        bt.decode(tb), o, d, cap, eps)
+    try:
+        bt.reset_launch_counts()
+        through_plain = render.render_camera(small, 0, spp=2, ldr=True)
+        plain_launches = dict(bt.LAUNCHES)
+    finally:
+        bt.tri_bvh_nearest, bt.tri_bvh_anyhit = nearest, anyhit
+    check(not any(plain_launches.values()),
+          f"the plain-walk frame launched kernels: {plain_launches}")
+    differ = int((through_kernels != through_plain).sum())
+    check(differ == 0, f"{differ} LDR values differ between the kernels' "
+          "and the plain walks' rock100k_pt frames")
+    phase("kernel_equals_plain_frame", scene="rock100k_pt", res=64, spp=2,
+          ldr_values_differing=differ,
+          frame_mean=float(through_kernels.mean()))
+    return launches, max(errs), float(max(mism) > 0)
 
 
 def main() -> int:
@@ -555,6 +927,21 @@ def main() -> int:
           per_group_median_s=statistics.median(per_group),
           per_group_s=per_group, per_group_launches=per_group_launches,
           card=card)
+
+    # ---- 10-15. the RNG, multi-sample frames and the path tracer ----
+    per_draw, draw_s = rng_phase(dev)
+    ms_launches = multisample_phase(render, bt, intersect, load_scene,
+                                    read_ppm, dev, card, per_draw, draw_s)
+    stochastic_phase(render, load_scene, read_ppm, dev)
+    cornell_phase(render, load_scene, dev, card, per_draw, draw_s)
+    analytic_phase(render, load_scene, dev)
+    pt_launches, pt_err, pt_bad = rock_pt_phase(
+        render, bt, intersect, load_scene, dev, card)
+    for k in ("nearest", "anyhit"):
+        launches[k] += (inst_launches[k] + ms_launches[k] + pt_launches[k]
+                        + big_launches[k])
+    err_by["nearest"] = max(err_by["nearest"], pt_err)
+    err_by["anyhit"] = max(err_by["anyhit"], pt_bad)
 
     kernels = [{
         "name": name, "route": "cuda",

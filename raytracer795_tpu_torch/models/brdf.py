@@ -57,6 +57,11 @@ def gather_brdf_rec(mats, mat_idx) -> BrdfRec:
                    absidx=mats.absorption_index[mi])
 
 
+def term_brdf(wi: Vec3, wo: Vec3, normal: Vec3, mats, mat_idx) -> Vec3:
+    """f(wi, wo) per lane (Vec3); gathers rows itself (see term_brdf_rec)."""
+    return term_brdf_rec(wi, wo, normal, gather_brdf_rec(mats, mat_idx))
+
+
 def term_brdf_rec(wi: Vec3, wo: Vec3, normal: Vec3, rec: BrdfRec) -> Vec3:
     """f(wi, wo) per lane (Vec3) given pre-gathered material rows."""
     kd, ks, p, btype = rec.kd, rec.ks, rec.p, rec.btype

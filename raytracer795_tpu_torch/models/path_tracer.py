@@ -1,0 +1,312 @@
+"""Monte Carlo path tracer (the reference's hw7, pages/Page7.md), forward only.
+
+Counterpart of ``raytracer795_tpu/models/path_tracer.py``. Every
+pixel-sample lane carries one continuation ray and a throughput; each
+bounce traces all live lanes as one wavefront, and every decision is a
+lane mask. Random numbers come from the RNG that matches ``jax.random``
+(``utils/rng.py``) with the JAX package's keys, so a frame equals the JAX
+render of the same seed lane for lane, up to the last-ulp differences of
+transcendentals.
+
+Semantics (the JAX module's docstring has the derivations):
+- emission counts when a ray hits an emissive primitive; with NEE on, only
+  for camera rays and rays leaving specular vertices (pages/Page7.md:149);
+- at diffuse vertices, NEE area-samples every object light (sphere lights
+  with the |cof(M) n| Jacobian, mesh lights by area CDF) with an exact
+  occlusion cap, and the classic lights contribute through the Whitted
+  integrator's ``direct_lighting``;
+- diffuse vertices continue on a uniform or cosine hemisphere sample,
+  mirror and conductor on the reflection, dielectrics on reflection with
+  probability Fresnel or refraction otherwise, with Beer absorption;
+- lanes stop at the bounce cap, on NaN or a throughput <= 1e-6, and under
+  Russian roulette from bounce 1 with survival q = clip(max tput, 0.05, 1).
+
+Bounce ``i`` draws from keys ``fold_in(fold_in(key, i), 1|2|3|4)``, so the
+loop may end as soon as no lane is live without changing any pixel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from raytracer795_tpu_torch.models.brdf import _mat3_rows, term_brdf
+from raytracer795_tpu_torch.models.lights import ShadePoint, direct_lighting
+from raytracer795_tpu_torch.models.whitted import (_conductor_fresnel,
+                                                   _fresnel_dielectric,
+                                                   _glossy_perturb, _refract)
+from raytracer795_tpu_torch.ops import intersect
+from raytracer795_tpu_torch.ops.texture import apply_textures, check_untextured
+from raytracer795_tpu_torch.scene import types as T
+from raytracer795_tpu_torch.utils import rng
+from raytracer795_tpu_torch.utils.vec3 import (Vec3, cdiv, const_mat3_apply,
+                                               sqrt,
+                                               vany_nan, vcross, vdot, vnorm,
+                                               vnormalize, vorthonormal_u,
+                                               vreflect, vsafe_normalize,
+                                               vscrub_nan, vwhere)
+from raytracer795_tpu_torch.utils.vecmath import safe_pow
+
+
+def _pt_brdf(wi: Vec3, wo: Vec3, normal: Vec3, mats, mat_idx) -> Vec3:
+    """BRDF for path tracing: the reference's 8 models for materials that
+    name one; otherwise the normalized Blinn-Phong pair
+    kd/pi + ks (p+8)/(8 pi) (n.h)^p (src/Light.cpp:112-121), which
+    conserves energy where the unnormalized shading formula would not."""
+    mi = mat_idx.long()
+    f = term_brdf(wi, wo, normal, mats, mi)
+    kd = _mat3_rows(mats.diffuse, mi)
+    ks = _mat3_rows(mats.specular, mi)
+    pexp = mats.phong[mi]
+    h = vsafe_normalize(wo + wi)    # wi == -wo on dead lanes => |h| == 0
+    cos_h = torch.clamp_min(vdot(normal, h), 0.0)
+    f_plain = cdiv(kd, math.pi) + ks * (cdiv(pexp + 8.0, 8.0 * math.pi)
+                                        * safe_pow(cos_h, pexp))
+    return vwhere(mats.brdf[mi] == T.BRDF_NONE, f_plain, f)
+
+
+def _sample_hemisphere(n: Vec3, chi0, chi1, importance: bool):
+    """Direction and pdf around normal ``n`` from two [N] uniforms."""
+    u = vorthonormal_u(n)
+    w = vcross(n, u)
+    phi = chi1 * 2.0 * math.pi
+    if importance:
+        # cosine-weighted: pdf = cos/pi
+        r = sqrt(chi0)
+        z = sqrt(torch.clamp_min(1.0 - chi0, 0.0))
+        d = u * (r * torch.cos(phi)) + w * (r * torch.sin(phi)) + n * z
+        pdf = torch.clamp_min(cdiv(z, math.pi), 1e-8)
+    else:
+        # uniform: pdf = 1/(2pi)
+        z = chi0
+        r = sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+        d = u * (r * torch.cos(phi)) + w * (r * torch.sin(phi)) + n * z
+        pdf = torch.full(z.shape, 1.0 / (2.0 * math.pi), device=z.device)
+    return vnormalize(d), pdf
+
+
+def _object_light_nee(scene: T.Scene, sp: ShadePoint, key: rng.Key) -> Vec3:
+    """Direct contribution of all object lights via area sampling; light
+    ``idx`` (sphere lights first) draws from ``fold_in(key, 7000 + idx)``."""
+    N = sp.time.shape[0]
+    dev = sp.time.device
+    out = Vec3.zeros((N,), dev)
+    mats = scene.materials
+    eps = scene.shadow_eps
+
+    def shade_from_sample(lpos: Vec3, lnormal: Vec3, radiance, pdf_area):
+        to_l = lpos - sp.point
+        d2 = vdot(to_l, to_l)
+        # guarded sqrt/division: dead lanes can have sample == point
+        dist = sqrt(torch.where(d2 > 0, d2, 1.0))
+        dist = torch.where(d2 > 0, dist, 1.0)
+        wi = to_l * (1.0 / dist)
+        # occlusion: any hit strictly closer than the sample point (the
+        # backface-shadow fix of pages/Page7.md:143): |eps*n + t*wi| <
+        # dist - 2*eps solved for the exact t_cap. Lanes without a shade
+        # point get a zero direction, which retires them at kernel entry;
+        # their contribution is masked below.
+        c = vdot(sp.normal, wi)
+        dlim = dist - 2.0 * eps
+        rad = torch.clamp_min(eps * eps * (c * c - 1.0) + dlim * dlim, 0.0)
+        t_cap = -eps * c + sqrt(rad)
+        rays = intersect.Rays(o=sp.point + sp.normal * eps,
+                              d=vwhere(sp.valid, wi, 0.0), time=sp.time)
+        visible = ~intersect.trace_anyhit(scene, rays, t_cap)
+        cos_x = torch.clamp_min(vdot(sp.normal, wi), 0.0)
+        cos_l = torch.abs(vdot(lnormal, -wi))
+        f = _pt_brdf(wi, sp.wo, sp.normal, mats, sp.mat)
+        geom = cos_x * cos_l / torch.clamp_min(d2, 1e-12)
+        scale = geom / torch.clamp_min(pdf_area, 1e-12)
+        contrib = Vec3(radiance[0] * f.x, radiance[1] * f.y,
+                       radiance[2] * f.z) * scale
+        return vwhere(visible & sp.valid, contrib, 0.0)
+
+    idx = 0
+    for sl in scene.sphere_lights:
+        chi = rng.uniform(rng.fold_in(key, 7000 + idx), (2, N), dev)
+        z = 1.0 - 2.0 * chi[0]
+        r = sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+        phi = 2.0 * math.pi * chi[1]
+        n_l = Vec3(r * torch.cos(phi), z, r * torch.sin(phi))
+        p_local = Vec3(sl.center[0] + sl.radius * n_l.x,
+                       sl.center[1] + sl.radius * n_l.y,
+                       sl.center[2] + sl.radius * n_l.z)
+        if sl.has_xform:
+            p_world = const_mat3_apply(sl.m, p_local) + Vec3(
+                sl.m[0, 3], sl.m[1, 3], sl.m[2, 3])
+            cof_n = const_mat3_apply(sl.cof, n_l)
+            jac = vnorm(cof_n)
+            n_world = vnormalize(cof_n)
+        else:
+            p_world = p_local
+            jac = torch.ones((N,), device=dev)
+            n_world = n_l
+        area_local = 4.0 * math.pi * sl.radius * sl.radius
+        pdf_area = 1.0 / (area_local * jac)
+        out = out + shade_from_sample(p_world, n_world, sl.radiance, pdf_area)
+        idx += 1
+
+    for ml in scene.mesh_lights:
+        chi = rng.uniform(rng.fold_in(key, 7000 + idx), (3, N), dev)
+        ti = torch.clamp(torch.searchsorted(ml.cdf, chi[0]), 0,
+                         ml.a.shape[0] - 1)
+        # uniform barycentric (sqrt trick)
+        su = sqrt(chi[1])
+        b1 = 1.0 - su
+        b2 = chi[2] * su
+        b0 = 1.0 - b1 - b2
+        p = (Vec3.from_array(ml.a[ti]) * b0 + Vec3.from_array(ml.b[ti]) * b1
+             + Vec3.from_array(ml.c[ti]) * b2)
+        n_l = Vec3.from_array(ml.normal[ti])
+        pdf_area = (1.0 / torch.clamp_min(ml.total_area, 1e-12)).expand(N)
+        out = out + shade_from_sample(p, n_l, ml.radiance, pdf_area)
+        idx += 1
+
+    return out
+
+
+def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
+                key: rng.Key) -> torch.Tensor:
+    """Path-trace a batch of camera rays to radiance [N, 3]."""
+    check_untextured(scene)
+    with torch.no_grad():
+        return _bounces(scene, rays, bg_radiance, key).to_array()
+
+
+def _bounces(scene: T.Scene, rays: intersect.Rays, bg: Vec3,
+             key: rng.Key) -> Vec3:
+    N = rays.o.x.shape[0]
+    dev = rays.o.x.device
+    mats = scene.materials
+    vertex_normals = intersect.compute_vertex_normals(scene)
+    max_bounces = max(scene.max_depth, 1)
+    has_object_lights = bool(scene.sphere_lights or scene.mesh_lights)
+    eps = scene.shadow_eps
+
+    active = torch.ones((N,), dtype=torch.bool, device=dev)
+    count_emission = torch.ones((N,), dtype=torch.bool, device=dev)
+    o, d, time = rays.o, rays.d, rays.time
+    tput = Vec3.ones((N,), dev)
+    sigma = Vec3.zeros((N,), dev)
+    radiance = Vec3.zeros((N,), dev)
+
+    for i in range(max_bounces):
+        if i and not bool(active.any()):
+            break       # later bounces would add nothing: keys are per bounce
+        k_iter = rng.fold_in(key, i)
+        # dead lanes keep their last ray; a zero direction retires them at
+        # kernel entry
+        wrays = intersect.Rays(o=o, d=vwhere(active, d, 0.0), time=time)
+        hit = intersect.trace(scene, wrays)
+        hit_valid = hit.valid & active
+        det = intersect.hit_details(scene, wrays, hit, vertex_normals)
+        det = det._replace(valid=hit_valid)
+        tex = apply_textures(scene, det)
+        normal = tex.normal
+
+        # Beer attenuation of the resolved segment
+        seg_t = torch.where(hit_valid, det.t, 0.0)
+        tput = tput * Vec3(torch.exp(-sigma.x * seg_t),
+                           torch.exp(-sigma.y * seg_t),
+                           torch.exp(-sigma.z * seg_t))
+
+        # primary misses see the background; secondary misses add nothing
+        # (the Whitted convention, src/Scene.cpp:150-153)
+        if i == 0:
+            radiance = radiance + vwhere(active & ~hit_valid, bg, 0.0)
+        # emission at the hit (double-count rule)
+        radiance = radiance + vwhere(hit_valid & count_emission,
+                                     tput * det.emission, 0.0)
+
+        mi = det.mat.long()
+        mtype = mats.mtype[mi]
+        is_diffuse = hit_valid & (mtype == T.MAT_NORMAL)
+        is_mirror = hit_valid & (mtype == T.MAT_MIRROR)
+        is_conductor = hit_valid & (mtype == T.MAT_CONDUCTOR)
+        is_dielectric = hit_valid & (mtype == T.MAT_DIELECTRIC)
+
+        # ---- NEE and classic lights at diffuse vertices ----
+        sp = ShadePoint(point=det.point, normal=normal, wo=-d, mat=det.mat,
+                        dm=tex.dm, tex_color=tex.tex_color,
+                        tex_norm=tex.tex_normalizer, time=time,
+                        valid=is_diffuse)
+        if scene.pt_nee and has_object_lights:
+            nee = _object_light_nee(scene, sp, rng.fold_in(k_iter, 1))
+            radiance = radiance + vscrub_nan(
+                vwhere(is_diffuse, tput * nee, 0.0))
+        classic = direct_lighting(scene, sp, rng.fold_in(k_iter, 2))
+        radiance = radiance + vscrub_nan(
+            vwhere(is_diffuse, tput * classic, 0.0))
+
+        # ---- continuations ----
+        chi = rng.uniform(rng.fold_in(k_iter, 3), (6, N), dev)
+
+        # diffuse: hemisphere sample
+        d_diff, pdf = _sample_hemisphere(normal, chi[0], chi[1],
+                                         scene.pt_importance)
+        f = _pt_brdf(d_diff, -d, normal, mats, det.mat)
+        cos_s = torch.clamp_min(vdot(d_diff, normal), 0.0)
+        w_diff = f * (cos_s / pdf)
+
+        # specular shared math
+        wr = vreflect(d, normal)
+        wr = _glossy_perturb(wr, mats.roughness[mi], mats.is_rough[mi],
+                             chi[4] - 0.5, chi[5] - 0.5)
+        f_cond = _conductor_fresnel(mats.refraction[mi],
+                                    mats.absorption_index[mi], d, normal)
+        # snell guarded on non-dielectric lanes (refraction index may be 0)
+        nt = mats.refraction[mi]
+        diel = mtype == T.MAT_DIELECTRIC
+        nt_s = torch.where(diel, nt, 1.0)
+        entering = vdot(d, normal) < 0
+        no = vwhere(entering, normal, -normal)
+        snell = torch.where(entering, 1.0 / nt_s, nt_s)
+        t_dir, tir = _refract(d, no, snell, diel)
+        n_t = torch.where(entering, nt_s, 1.0)
+        n_i = torch.where(entering, 1.0, nt_s)
+        fr = _fresnel_dielectric(n_t, n_i, d, t_dir, no)
+        fr = torch.where(tir, 1.0, fr)
+        absorb = _mat3_rows(mats.absorption_coef, mi)
+        # stochastic branch pick: reflect with probability fr
+        pick_reflect = chi[3] < fr
+        refl = pick_reflect | tir
+        diel_d = vwhere(refl, wr, t_dir)
+        diel_o = vwhere(refl, det.point + normal * eps, det.point - no * eps)
+        # Beer applies when the NEXT segment runs inside the medium
+        diel_sigma_on = ((entering & ~pick_reflect)
+                         | (~entering & (tir | pick_reflect)))
+        diel_sigma = vwhere(diel_sigma_on, absorb, 0.0)
+
+        new_d = vwhere(is_diffuse, d_diff, vwhere(is_dielectric, diel_d, wr))
+        new_o = vwhere(is_dielectric, diel_o, det.point + normal * eps)
+        mfac = _mat3_rows(mats.mirror, mi)
+        w_next = vwhere(is_diffuse, w_diff,
+                        vwhere(is_mirror, mfac,
+                               vwhere(is_conductor, mfac * f_cond, 1.0)))
+        sigma_next = vwhere(is_dielectric, diel_sigma, 0.0)
+        tput = tput * vwhere(hit_valid, w_next, 1.0)
+
+        # with NEE, diffuse-vertex BRDF samples must not re-collect emission
+        count_emission = (~is_diffuse if scene.pt_nee
+                          else torch.ones_like(is_diffuse))
+
+        cont = hit_valid & (i + 1 < max_bounces)
+        cont = cont & ~(vany_nan(new_d) | vany_nan(tput))
+        tput_max = torch.maximum(tput.x, torch.maximum(tput.y, tput.z))
+        cont = cont & (tput_max > 1e-6)
+
+        # Russian roulette (throughput survival)
+        if scene.pt_rr and i >= 1:
+            q = torch.clamp(tput_max, 0.05, 1.0)
+            live = rng.uniform(rng.fold_in(k_iter, 4), (N,), dev) < q
+            tput = vwhere(cont & live, tput * (1.0 / q), tput)
+            cont = cont & live
+
+        active = cont
+        o = vwhere(cont, new_o, o)
+        d = vwhere(cont, new_d, d)
+        sigma = vwhere(cont, sigma_next, sigma)
+
+    return radiance

@@ -24,8 +24,10 @@ segment's length is known, in the next iteration, as the JAX package does
 (including its documented reading of src/Scene.cpp:110 for the internal
 reflected branch).
 
-Not ported yet, and raising: gradients (ROADMAP queue 1 item 17) and glossy
-materials, whose jitter needs the RNG that matches JAX (items 10 and 12).
+Glossy materials jitter the mirror direction (src/Scene.cpp:41-47) with
+the RNG that matches ``jax.random``: iteration ``it`` draws from
+``fold_in(fold_in(key, it), 7)`` and passes ``fold_in(key, it)`` to direct
+lighting. Not ported yet, and raising: gradients (ROADMAP queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -39,10 +41,21 @@ from raytracer795_tpu_torch.models.lights import ShadePoint, direct_lighting
 from raytracer795_tpu_torch.ops import intersect
 from raytracer795_tpu_torch.ops.texture import apply_textures, check_untextured
 from raytracer795_tpu_torch.scene import types as T
-from raytracer795_tpu_torch.utils.vec3 import (Vec3, vany_nan, vdot,
-                                               vmasked_normalize, vreflect,
-                                               vscrub_nan, vwhere)
+from raytracer795_tpu_torch.utils import rng
+from raytracer795_tpu_torch.utils.vec3 import (Vec3, sqrt, vany_nan, vcross,
+                                               vdot, vmasked_normalize,
+                                               vorthonormal_u, vreflect,
+                                               vsafe_normalize, vscrub_nan,
+                                               vwhere)
 from raytracer795_tpu_torch.utils.vecmath import safe_div
+
+
+def _glossy_perturb(wr: Vec3, roughness, is_rough, chi0, chi1) -> Vec3:
+    """Rough-mirror jitter (src/Scene.cpp:41-47)."""
+    u = vorthonormal_u(wr)
+    v = vcross(wr, u)
+    wr2 = vsafe_normalize(wr + (u * chi0 + v * chi1) * roughness)
+    return vwhere(is_rough, wr2, wr)
 
 
 def _fresnel_dielectric(n_t, n_i, d: Vec3, t_dir: Vec3, no: Vec3):
@@ -71,7 +84,7 @@ def _refract(d: Vec3, no: Vec3, snell, diel_mask):
     cos_i = -vdot(d, no)
     sqrt_part = 1.0 - snell * snell * (1.0 - cos_i * cos_i)
     tir = sqrt_part < 0
-    root = (torch.sqrt(torch.where(sqrt_part > 0, sqrt_part, 1.0))
+    root = (sqrt(torch.where(sqrt_part > 0, sqrt_part, 1.0))
             * (sqrt_part > 0))
     t_raw = (d + no * cos_i) * snell - no * root
     t_dir = vmasked_normalize(diel_mask & ~tir, t_raw)
@@ -112,7 +125,7 @@ def iteration_bound(scene: T.Scene) -> int:
 
 
 def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
-                differentiable: bool = False) -> torch.Tensor:
+                key: rng.Key, differentiable: bool = False) -> torch.Tensor:
     """Shade a batch of camera rays to radiance [N, 3].
 
     The loop ends when every lane is idle, or at ``iteration_bound``.
@@ -120,17 +133,13 @@ def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
     if differentiable:
         raise NotImplementedError(
             "gradients are not ported yet: ROADMAP queue 1 item 17")
-    if scene.any_rough:
-        raise NotImplementedError(
-            "glossy materials jitter with the RNG that matches JAX: ROADMAP "
-            "queue 1 items 10 and 12")
     check_untextured(scene)
     with torch.no_grad():
-        return _render_machine(scene, rays, bg_radiance).to_array()
+        return _render_machine(scene, rays, bg_radiance, key).to_array()
 
 
-def _render_machine(scene: T.Scene, rays: intersect.Rays,
-                    bg: Vec3) -> Vec3:
+def _render_machine(scene: T.Scene, rays: intersect.Rays, bg: Vec3,
+                    key: rng.Key) -> Vec3:
     N = rays.o.x.shape[0]
     dev = rays.o.x.device
     D = max(scene.max_depth, 1)
@@ -184,6 +193,7 @@ def _render_machine(scene: T.Scene, rays: intersect.Rays,
                                torch.exp(-sigma.z * seg_t))
 
         # ---- emissions ----
+        iter_key = rng.fold_in(key, it)
         mat_idx = det.mat
         mi = mat_idx.long()
         mtype = mats.mtype[mi]
@@ -206,12 +216,16 @@ def _render_machine(scene: T.Scene, rays: intersect.Rays,
             point=det.point, normal=normal, wo=-d, mat=mat_idx,
             dm=tex.dm, tex_color=tex.tex_color, tex_norm=tex.tex_normalizer,
             time=time, valid=emits)
-        basic = direct_lighting(scene, sp_point)
+        basic = direct_lighting(scene, sp_point, iter_key)
         radiance = radiance + vscrub_nan(vwhere(emits, tput * basic, 0.0))
 
         # ---- continuation rays ----
         eps = scene.shadow_eps
         wr = vreflect(d, normal)
+        if scene.any_rough:
+            chi = rng.uniform(rng.fold_in(iter_key, 7), (2, N), dev) - 0.5
+            wr = _glossy_perturb(wr, mats.roughness[mi], mats.is_rough[mi],
+                                 chi[0], chi[1])
         refl_o = det.point + normal * eps      # src/Scene.cpp:50 (always +n)
         mfac = _mat3_rows(mats.mirror, mi)
         if scene.any_conductor:

@@ -41,7 +41,8 @@ from raytracer795_tpu_torch.utils.vec3 import (Mat3, Vec3, cdiv,
                                                const_affine_apply,
                                                const_mat3_apply, mwhere,
                                                vany_nan, vcross, vdot,
-                                               vmasked_normalize, vwhere)
+                                               sqrt, vmasked_normalize,
+                                               vwhere)
 
 _BIG = 3.0e38
 
@@ -218,7 +219,7 @@ def _sphere_test(o: Vec3, d: Vec3, cx, cy, cz, r, int_eps):
     cq = ocx * ocx + ocy * ocy + ocz * ocz - r * r
     disc = b * b - dd * cq
     ok = disc >= int_eps
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = sqrt(torch.clamp_min(disc, 0.0))
     t1 = (-b + sq) / dd
     t2 = (-b - sq) / dd
     # sign cases (src/Shape.cpp:365-388)
@@ -626,14 +627,14 @@ def compute_vertex_normals(scene: T.Scene) -> torch.Tensor:
                                Vec3.from_array(a - b)), dim=-1)
         sq = (n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]
               + n[:, 2] * n[:, 2])[:, None]
-        n = n / torch.sqrt(torch.where(sq > 0, sq, 1.0))
+        n = n / sqrt(torch.where(sq > 0, sq, 1.0))
         w = (group.tri_smooth & (sq[:, 0] > 0)).to(verts.dtype)[:, None]
         n = n * w
         for k in range(3):
             acc = acc.index_add(0, vidx[:, k], n)
     sq = (acc[:, 0] * acc[:, 0] + acc[:, 1] * acc[:, 1]
           + acc[:, 2] * acc[:, 2])[:, None]
-    return acc / torch.sqrt(torch.where(sq > 0, sq, 1.0))
+    return acc / sqrt(torch.where(sq > 0, sq, 1.0))
 
 
 def hit_details(scene: T.Scene, rays: Rays, hit: Hit,
@@ -798,7 +799,7 @@ def hit_details(scene: T.Scene, rays: Rays, hit: Hit,
         bq = vdot(local_d, oc)
         cq = vdot(oc, oc) - radius * radius
         disc = bq * bq - dd * cq
-        sq = torch.sqrt(torch.where(disc > 0, disc, 1.0)) * (disc > 0)
+        sq = sqrt(torch.where(disc > 0, disc, 1.0)) * (disc > 0)
         inv_dd = 1.0 / torch.where(dd != 0, dd, 1.0)
         t1 = (-bq + sq) * inv_dd
         t2 = (-bq - sq) * inv_dd

@@ -765,8 +765,8 @@ def load_scene(xml_path: str, device,
             a_size.append(_child_float(e, "Size", 1.0))
         if lights_e.find("SphericalDirectionalLight") is not None:
             raise NotImplementedError(
-                "environment lights sample with the RNG that matches JAX "
-                "and read EXR images: ROADMAP queue 1 items 10-11")
+                "environment lights read EXR images and sample them as "
+                "textures: ROADMAP queue 1 item 11")
 
     def v3list(lst):
         return (np.asarray(lst, np.float32).reshape(-1, 3)

@@ -10,7 +10,8 @@ component (``const_mat3_apply``), with the contraction order j = 0, 1, 2.
 
 Division by a constant goes through ``cdiv``: on a CUDA tensor, PyTorch
 turns ``x / python_scalar`` into ``x * (1 / scalar)``, which is not the
-correctly rounded quotient the JAX package computes.
+correctly rounded quotient the JAX package computes. A constant divided
+by a tensor goes through ``rdiv`` for the same reason.
 """
 
 from __future__ import annotations
@@ -25,6 +26,22 @@ def cdiv(x, c):
     if isinstance(x, Vec3):
         return Vec3(cdiv(x.x, c), cdiv(x.y, c), cdiv(x.z, c))
     return x / torch.full((), float(c), dtype=x.dtype, device=x.device)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as XLA and CUDA's
+    ``sqrtf`` give it. PyTorch's vectorized CPU kernel can be 1 ulp off;
+    there the float64 root, rounded once to float32, is exact (53 bits
+    >= 2 * 24 + 2, so the double rounding cannot err)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
+def rdiv(c, x: torch.Tensor) -> torch.Tensor:
+    """``c / x`` correctly rounded for a Python scalar ``c``: PyTorch's
+    ``c / x`` is ``reciprocal(x) * c``, two roundings."""
+    return torch.full((), float(c), dtype=x.dtype, device=x.device) / x
 
 
 class Vec3(NamedTuple):
@@ -113,7 +130,7 @@ def vnorm2(v: Vec3):
 
 
 def vnorm(v: Vec3):
-    return torch.sqrt(vnorm2(v))
+    return sqrt(vnorm2(v))
 
 
 def vnormalize(v: Vec3) -> Vec3:

@@ -61,7 +61,9 @@ def assert_same(a, b, path="scene"):
 @pytest.mark.parametrize("name,bvh_min_tris", [
     ("simple", 1024), ("cornellbox", 1024), ("brdfs", 1024),
     ("lights", 1024), ("transforms", 1024), ("instances", 1024),
-    ("instances", 2), ("rock6k", 1024)])
+    ("instances", 2), ("rock6k", 1024), ("cornellbox_pt", 1024),
+    ("furnace", 1024), ("arealight", 1024), ("motionblur", 1024),
+    ("distributed", 1024), ("rock100k_pt", 1024)])
 def test_loader_matches_jax_loader(name, bvh_min_tris, tmp_path):
     from raytracer795_tpu.scene.loader import load_scene as jax_load
 
@@ -82,6 +84,12 @@ def test_loader_matches_jax_loader(name, bvh_min_tris, tmp_path):
         # the rock and the floor merge into one BVH group
         (g,) = port.scene.groups
         assert g.n_tris == 6242 and g.bvh is not None
+    if name in ("cornellbox_pt", "furnace", "rock100k_pt"):
+        # object lights and the path tracer's switches are among the leaves
+        sc = port.scene
+        assert sc.renderer == "pathtracing" and sc.pt_nee and sc.pt_importance
+        assert sc.pt_rr == (name == "rock100k_pt")
+        assert len(sc.sphere_lights) + len(sc.mesh_lights) == 1
 
 
 def test_instances_share_one_bvh():
@@ -97,7 +105,9 @@ def test_instances_share_one_bvh():
 
 def test_port_never_imports_jax(tmp_path):
     """Rendering through the port leaves jax and the JAX package unloaded,
-    for a brute-force scene and for a multi-packed rock6k."""
+    for a brute-force scene, a multi-packed rock6k, and multi-sample
+    frames of the path tracer and of a depth-of-field, glossy scene (the
+    RNG, sample rays and path tracer modules)."""
     code = f"""
 import sys
 import numpy as np
@@ -113,6 +123,11 @@ assert ld.scene.groups[0].bvh is None
 assert len(ld.scene.groups[0].pack_bvhs) == 4
 img = render.render_camera(ld, 0, ldr=True)
 assert img.shape == (16, 16, 3) and img.max() > 0
+for name in ("cornellbox_pt", "distributed"):     # path tracer; DoF, glossy
+    ld = rt.load_scene({conftest.SCENES!r} + "/" + name + ".xml", "cpu")
+    ld.cameras[0].nx = ld.cameras[0].ny = 8
+    img = render.render_camera(ld, 0, seed=1, spp=2)
+    assert img.shape == (8, 8, 3) and img.max() > 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "raytracer795_tpu")]
 assert not bad, bad
