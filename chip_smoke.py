@@ -6,11 +6,17 @@ Phases, one line each; any failed check raises, so the script exits
 non-zero and prints no result:
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: compile csrc/bvh_traverse.cu with nvcc (sm_90a) into build/.
+2. build: compile csrc/bvh_traverse.cu with nvcc (sm_90a) into build/;
+   ptxas's registers and spills are printed, and a spill fails.
 3. kernel vs plain, on the card: random meshes with NaN, zero and d == 0
    rays, then rock100k's own primary wavefront (400x400, 160k rays) and its
-   first shadow wavefront. Hit masks, prim ids and any-hit answers must be
-   equal, t within 2e-5.
+   first shadow wavefront. Every single-pack kernel query runs twice; keys,
+   t and prim ids on every lane and any-hit answers must equal the plain
+   walk's bit for bit, and the repeat the first run. The same holds on the
+   moved-vertex and axis-aligned vertex-exact cases of
+   tests/test_torch_traverse.py at 131,072 rays, rock100k's mostly dead
+   mirror-bounce wavefront, 0, 1, 31, 33 and 129 live shadow rays, and
+   shadow caps of 0 and +inf.
 4. main path: ``render_scene`` of tests/scenes/rock100k.xml on cuda, with
    the launch counters reset just before and read just after; the frame
    must match tests/goldens/rock100k.ppm at frac(|dLDR| > 1) < 1e-4. The
@@ -18,7 +24,11 @@ non-zero and prints no result:
    lights, transforms, instances) must meet their bounds.
 5. times on this card: median of 5 rock100k frames after a warm-up at
    400x400 and 800x800 (1 spp), and kernel vs plain walk times for one
-   primary and one shadow wavefront at 400x400.
+   primary and one shadow wavefront at 400x400. Each kernel time (here and
+   in phases 9 and 15) is printed beside its bound, the larger of the
+   query's bytes over the memory rate and its operations (node visits
+   and triangle tests counted by ``walk_work``) over the fp32 rate
+   without FMA, and beside the kernel's time before (``BEFORE_MS``).
 6. multi-pack kernels vs plain, on the card: a random mesh cut into packs
    (NaN, zero and d == 0 rays, per-lane caps), then rock1800k's primary
    and first shadow wavefronts (tests/scenes/rock1800k.ply is written by
@@ -38,8 +48,10 @@ non-zero and prints no result:
    launch counts are printed.
 9. times: rock1800k load and frame (median of 5 after a warm-up), the
    multi-pack kernels vs their plain versions on its two wavefronts, the
-   single-pack kernels over one BVH of the same triangles (a probe), and
-   instances_rock frames with batched against per-group launches.
+   single-pack kernels on instances_rock's two batched queries and over
+   one BVH of rock1800k's triangles (a probe), instances_rock frames with
+   batched against per-group launches, and one profiled instances_rock
+   frame.
 10. rng: ``utils/rng`` on the card gives the bits it gives on the CPU, and
    the literal ``jax.random`` values of tests/test_torch_rng.py.
 11. multi-sample main path: ``render_scene`` of rock100k at 800x800 and
@@ -47,7 +59,8 @@ non-zero and prints no result:
    just before and read just after; both single-pack kernels launched and
    no plain walk called; 8x8-pooled means within 3 of the 1-spp golden
    (the frame averaged 2x2 to its 400x400); frame median of 5 and one
-   profiled frame (kernel launches, device time, RNG draws).
+   profiled frame (kernel launches, device time, the traversal kernels'
+   device ms and share of it, the costliest kernels, RNG draws).
 12. stochastic goldens: arealight, motionblur and distributed at their own
    resolution and spp, at tests/test_golden.py:45-50's bounds.
 13. path tracer, Cornell: tests/scenes/cornellbox_pt.xml at 800x800, 4 spp,
@@ -60,7 +73,8 @@ non-zero and prints no result:
    reset just before and read just after (both single-pack kernels
    launched, no plain walk); the kernels vs their plain walks on the
    first diffuse-bounce wavefront and the first NEE wavefront with its
-   per-ray caps, with their times; its frame median of 5; and a 64x64,
+   per-ray caps, with their times; its frame median of 5 and one profiled
+   frame; and a 64x64,
    2-spp frame rendered twice, once through the kernels and once with the
    wrappers swapped for the plain walks: the LDR frames must be equal.
 
@@ -120,6 +134,31 @@ REPLACES = {name: f"raytracer795_tpu/ops/pallas_bvh.py:{line}"
             for name, line in (("nearest", 335), ("anyhit", 404),
                                ("nearest_multi", 767),
                                ("anyhit_multi", 835))}
+# The card's peak rates (H100 SXM datasheet, 700 W):
+# HBM bytes a second, and fp32 operations a second without FMA
+# contraction. The kernels build with -fmad=false, so every add, multiply
+# and compare is an instruction of its own: half the 67 TFLOP/s that
+# counts an FMA as two.
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_OPS_S = 33.5e12
+# Operations a node visit and a triangle test need at least: the slab
+# test (3 axes x (2 subtractions, 2 multiplications, a max, a min), the
+# box and prune compares) and the triangle test up to t (a - o 3, e2 x d 9,
+# det 5, 1/det 1, t 6, 2 compares); the exact early exit skips the rest
+# for most triangles.
+NODE_OPS = 20
+TRI_OPS = 26
+# Times of the one-thread-a-ray kernels that the persistent single-pack
+# kernels replaced, and of the multi-pack kernels before their triangle
+# rows shrank to 48 bytes (PERF.md section 6, CUDA events, H100, 700 W), ms
+BEFORE_MS = {("nearest", "rock100k primary"): 0.934,
+             ("anyhit", "rock100k first shadow"): 1.254,
+             ("nearest", "rock100k_pt first diffuse bounce"): 1.536,
+             ("anyhit", "rock100k_pt first NEE"): 1.471,
+             ("nearest_multi", "rock1800k primary"): 3.009,
+             ("anyhit_multi", "rock1800k first shadow"): 7.451}
+RAGGED_N = (0, 1, 31, 33, 129)
+EDGE_RAYS = 131072          # rays of the moved-vertex and axis-aligned cases
 
 
 def check(cond, msg):
@@ -171,22 +210,29 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def compare(bt, tb, o, d, cap, eps):
-    """Kernel vs plain walk on the card.
+    """The single-pack kernels vs their plain walks on the card, each
+    kernel query run twice: every output (|t| key, t and prim id on every
+    lane, any-hit answer) must equal the plain walk's bit for bit, and the
+    repeat the first run.
 
-    Returns (max |dt| over hits, any-hit mismatches, hits, occluded)."""
+    Returns (max |dt|, any-hit mismatches, hits, occluded)."""
     from raytracer795_tpu_torch.ops import intersect
 
     dec = bt.decode(tb)
-    key, t, idx = bt.tri_bvh_nearest(tb, o, d, eps)
-    found = bt.tri_bvh_anyhit(tb, o, d, cap, eps)
+    runs = [(*bt.tri_bvh_nearest(tb, o, d, eps),
+             bt.tri_bvh_anyhit(tb, o, d, cap, eps)) for _ in range(2)]
     pkey, pt, pidx = intersect._tri_bvh_candidates(dec, o, d, eps)
     pfound = intersect._tri_bvh_anyhit(dec, o, d, cap, eps)
     torch.cuda.synchronize()
-    hit, phit = key < 1e38, pkey < 1e38
-    check(torch.equal(hit, phit), "nearest hit masks differ")
-    check(torch.equal(idx[hit], pidx[hit]), "nearest prim ids differ")
-    err = float((t[hit] - pt[hit]).abs().max()) if hit.any() else 0.0
-    check(err <= T_TOL, f"nearest t differs by {err}")
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "a repeated kernel query gave other outputs")
+    key, t, idx, found = runs[0]
+    hit = key < 1e38
+    check(torch.equal(hit, pkey < 1e38), "nearest hit masks differ")
+    check(torch.equal(key, pkey), "nearest |t| keys differ")
+    check(torch.equal(idx, pidx), "nearest prim ids differ")
+    err = float((t - pt).abs().max()) if t.numel() else 0.0
+    check(torch.equal(t, pt), f"nearest t differs by {err}")
     mismatches = int((found != pfound).sum())
     check(mismatches == 0, f"{mismatches} any-hit answers differ")
     return err, mismatches, int(hit.sum()), int(found.sum())
@@ -285,6 +331,161 @@ def random_multi_case(bt, t, n, seed, pack_tris, dev):
                                      torch.from_numpy(cap).to(dev), eps)
 
 
+def kernel_bound(bt, tables, o, d, eps, cap=None):
+    """The least time the card could take for one query, from this query's
+    own work: its bytes (rays and caps in, answers out, the node and
+    triangle tables read once) over the memory rate, and its operations
+    (``walk_work``'s node visits and triangle tests) over the fp32 rate;
+    the larger of the two, and the work behind it."""
+    work = bt.walk_work(tables, o, d, eps, cap)
+    n = o.x.shape[0]
+    ops = NODE_OPS * int(work.nodes.sum()) + TRI_OPS * int(work.tris.sum())
+    ray_bytes = n * (24 + 4 + 1) if cap is not None else n * (24 + 12)
+    table_bytes = 4 * (tables.nodes.numel() + tables.tris.numel())
+    nbytes = ray_bytes + table_bytes
+    t_ops, t_bytes = ops / PEAK_FP32_OPS_S, nbytes / PEAK_BYTES_S
+    live = max(int((work.nodes > 0).sum()), 1)
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes, "walking_rays": live,
+            "node_visits_per_walk": int(work.nodes.sum()) / live,
+            "leaf_visits_per_walk": int(work.leaves.sum()) / live,
+            "tri_tests_per_walk": int(work.tris.sum()) / live}
+
+
+def kernel_time(bt, name, wave, tables, o, d, eps, cap, plain_ms, card):
+    """Times kernel ``name`` on one wavefront (mean of 20 launches) and
+    prints it beside its bound and its time before; returns
+    (ms, plain ms, bound record)."""
+    fn = {"nearest": bt.tri_bvh_nearest,
+          "nearest_multi": bt.tri_bvh_nearest_multi}.get(name)
+    if fn is None:
+        anyhit = {"anyhit": bt.tri_bvh_anyhit,
+                  "anyhit_multi": bt.tri_bvh_anyhit_multi}[name]
+        ms = cuda_ms(lambda: anyhit(tables, o, d, cap, eps), 20)
+    else:
+        ms = cuda_ms(lambda: fn(tables, o, d, eps), 20)
+    bound = kernel_bound(bt, tables, o, d, eps, cap)
+    phase("kernel_time", kernel=name, wavefront=wave, rays=o.x.shape[0],
+          kernel_ms=ms, plain_ms=plain_ms, **bound,
+          bound_share=bound["bound_ms"] / ms,
+          before_ms=BEFORE_MS.get((name, wave)), card=card)
+    return ms, plain_ms, bound
+
+
+def moved_vertices_case(bt, dev, t=4096, n=EDGE_RAYS, seed=5):
+    """tests/test_torch_traverse.py's moved-vertex case at ``n`` rays: a
+    tree built over a random mesh whose vertices then move, with the rays
+    of ``random_inputs``: (tables, o, d, cap, eps)."""
+    from raytracer795_tpu_torch.ops import bvh
+    from raytracer795_tpu_torch.scene.types import to_device
+
+    verts, tri_vidx, o, d, cap = random_inputs(t, n, seed)
+    flat, perm = bvh.build(*bvh.tri_bounds(verts, tri_vidx))
+    moved = verts + np.random.default_rng(seed + 1).normal(
+        scale=0.05, size=verts.shape).astype(np.float32)
+    tb = bt.build_tables(to_device(flat, dev), torch.from_numpy(moved).to(dev),
+                         torch.from_numpy(tri_vidx[perm]).to(dev))
+    eps = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    return (tb, col3(o, dev), col3(d, dev), torch.from_numpy(cap).to(dev),
+            eps)
+
+
+def axis_aligned_case(bt, dev, t=2048, n=EDGE_RAYS, seed=7):
+    """tests/test_torch_traverse.py's axis-aligned case at ``n`` rays:
+    directions with a zero component, origins EXACTLY on node-box bounds
+    and vertex coordinates: (tables, o, d, cap, eps)."""
+    from raytracer795_tpu_torch.ops import bvh
+    from raytracer795_tpu_torch.scene.types import to_device
+
+    rng = np.random.default_rng(seed)
+    verts = rng.normal(size=(t * 3, 3)).astype(np.float32)
+    tri_vidx = np.arange(t * 3, dtype=np.int32).reshape(t, 3)
+    flat, perm = bvh.build(*bvh.tri_bounds(verts, tri_vidx))
+    bounds = np.concatenate([flat.bmin, flat.bmax, verts]).astype(np.float32)
+    o = bounds[rng.integers(0, bounds.shape[0], (n, 3)),
+               rng.integers(0, 3, (n, 3))]
+    d = np.zeros((n, 3), np.float32)
+    main_ax, zero_ax = rng.integers(0, 3, n), rng.integers(0, 3, n)
+    d[np.arange(n), main_ax] = rng.choice([-1.0, 1.0], n)
+    diag = rng.random(n) < 0.33
+    other = (main_ax + 1) % 3
+    d[diag, other[diag]] = rng.choice([-1.0, 1.0], diag.sum())
+    d[np.arange(n), zero_ax] = 0.0
+    tb = bt.build_tables(to_device(flat, dev), torch.from_numpy(verts).to(dev),
+                         torch.from_numpy(tri_vidx[perm]).to(dev))
+    eps = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    return (tb, col3(o, dev), col3(d, dev),
+            torch.full((n,), 3.0, dtype=torch.float32, device=dev), eps)
+
+
+def record_queries(render, bt, loaded, spp=None):
+    """Render ``loaded`` once, recording every single-pack traversal query
+    in order: [(kind, args)], kind "nearest" with (tb, o, d, eps) or
+    "anyhit" with (tb, o, d, cap, eps)."""
+    nearest, anyhit = bt.tri_bvh_nearest, bt.tri_bvh_anyhit
+    calls = []
+
+    def rec_nearest(tb, o, d, eps):
+        calls.append(("nearest", (tb, o, d, eps)))
+        return nearest(tb, o, d, eps)
+
+    def rec_anyhit(tb, o, d, cap, eps):
+        calls.append(("anyhit", (tb, o, d, cap, eps)))
+        return anyhit(tb, o, d, cap, eps)
+    bt.tri_bvh_nearest, bt.tri_bvh_anyhit = rec_nearest, rec_anyhit
+    try:
+        render.render_camera(loaded, 0, spp=spp, ldr=True)
+    finally:
+        bt.tri_bvh_nearest, bt.tri_bvh_anyhit = nearest, anyhit
+    return calls
+
+
+def edge_phase(bt, render, loaded, tb, shadow, cap, eps, dev):
+    """Phase 3, second part: the single-pack kernels vs their plain walks,
+    bit for bit and twice each, on the moved-vertex and axis-aligned cases
+    at 131,072 rays, rock100k's mirror-bounce wavefront (mostly dead
+    lanes), ragged ray counts and caps of 0 and +inf. Returns the max |dt|
+    and any-hit mismatches."""
+    from raytracer795_tpu_torch.utils.vec3 import Vec3
+
+    errs, mism = [], []
+
+    def run(case, tables, o, d, c, e):
+        err, bad, hits, occ = compare(bt, tables, o, d, c, e)
+        errs.append(err)
+        mism.append(bad)
+        phase("kernel_vs_plain", case=case, rays=o.x.shape[0],
+              live=live_lanes(d) if o.x.shape[0] else 0, max_abs_t_err=err,
+              anyhit_mismatches=bad, hits=hits, occluded=occ)
+
+    run("random mesh 4096 tris, vertices moved after the build",
+        *moved_vertices_case(bt, dev))
+    run("random mesh 2048 tris, axis-aligned rays from vertex-exact "
+        "origins", *axis_aligned_case(bt, dev))
+    nearest = [a for kind, a in record_queries(render, bt, loaded)
+               if kind == "nearest"]
+    check(len(nearest) >= 2, "rock100k made a mirror-bounce query")
+    btb, bo, bd, beps = nearest[1]
+    check(live_lanes(bd) < bo.x.shape[0] // 2,
+          "the mirror-bounce wavefront is mostly dead")
+    run("rock100k mirror-bounce wavefront", btb, bo, bd,
+        torch.full_like(bo.x, float("inf")), beps)
+    walking = torch.nonzero((shadow.d.x != 0) | (shadow.d.y != 0)
+                            | (shadow.d.z != 0))[:, 0]
+    for n in RAGGED_N:
+        lanes = walking[:n]
+
+        def head(v):
+            return Vec3(*(c[lanes] for c in v))
+        run(f"rock100k first shadow wavefront, {n} live rays", tb,
+            head(shadow.o), head(shadow.d), cap[lanes], eps)
+    lanes = torch.arange(cap.shape[0], device=dev)
+    run("rock100k first shadow wavefront, caps 0 and +inf", tb, shadow.o,
+        shadow.d, torch.where(lanes % 2 == 0, 0.0, float("inf")), eps)
+    return max(errs), max(mism)
+
+
 def rock_wavefronts(loaded):
     """A scene's primary wavefront and its first shadow wavefront (light
     0) in world space, as the main path builds them: (primary, shadow,
@@ -340,9 +541,9 @@ def counting(module, names):
 
 
 def profile_launches(fn):
-    """(kernels run, device kernel ms) of ``fn()`` under torch.profiler,
-    tracing the card only (a CPU trace of every eager op costs the host
-    more than the frame itself)."""
+    """(kernels run, device kernel ms, device ms by kernel name) of
+    ``fn()`` under torch.profiler, tracing the card only (a CPU trace of
+    every eager op costs the host more than the frame itself)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -352,10 +553,19 @@ def profile_launches(fn):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith(("Memcpy", "Memset"))]
-    kernel_us = sum(getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0))
-                    for e in kernels)
-    return sum(e.count for e in kernels), kernel_us / 1e3
+    by_name = {e.key: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)) / 1e3
+               for e in kernels}
+    return sum(e.count for e in kernels), sum(by_name.values()), by_name
+
+
+def bvh_kernel_ms(by_name):
+    """Device ms of each traversal kernel in a trace, by its name there."""
+    out = {}
+    for name in REPLACES:
+        pat = re.compile(r"(?<![A-Za-z_])%s_kernel(?![a-z_])" % name)
+        out[name] = sum(ms for key, ms in by_name.items() if pat.search(key))
+    return out
 
 
 def profile_frame(render, ld, median_s, draw_s):
@@ -375,12 +585,17 @@ def profile_frame(render, ld, median_s, draw_s):
     try:
         render.render_camera(ld, 0, ldr=True)
         draws[0] = 0
-        kernels, kernel_ms = profile_launches(
+        kernels, kernel_ms, by_name = profile_launches(
             lambda: render.render_camera(ld, 0, ldr=True))
     finally:
         rng.uniform = uniform
+    bvh_ms = bvh_kernel_ms(by_name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"kernels_run": kernels, "kernel_ms": kernel_ms,
             "busy_share_of_median": kernel_ms / 1e3 / median_s,
+            "bvh_kernel_ms": bvh_ms,
+            "bvh_share_of_device": sum(bvh_ms.values()) / kernel_ms,
+            "top_kernels_ms": {k[:70]: ms for k, ms in top},
             "rng_draws": draws[0],
             "rng_share_of_median_est": draws[0] * draw_s / median_s}
 
@@ -433,7 +648,7 @@ def rng_phase(dev):
         check(torch.equal(rng.uniform(k, shape, dev).cpu().view(torch.int32),
                           rng.uniform(k, shape, "cpu").view(torch.int32)),
               f"uniform {shape} differs between the card and the CPU")
-    per_draw, draw_ms = profile_launches(
+    per_draw, draw_ms, _ = profile_launches(
         lambda: rng.uniform(k, (6, 204800), dev))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -562,21 +777,7 @@ def capture_pt_wavefronts(render, bt, loaded):
     any-hit query: object-light NEE comes before the point lights) of the
     bands where they have the most live lanes: (tb, o, d, eps) and
     (tb, o, d, cap, eps)."""
-    nearest, anyhit = bt.tri_bvh_nearest, bt.tri_bvh_anyhit
-    calls = []
-
-    def rec_nearest(tb, o, d, eps):
-        calls.append(("nearest", (tb, o, d, eps)))
-        return nearest(tb, o, d, eps)
-
-    def rec_anyhit(tb, o, d, cap, eps):
-        calls.append(("anyhit", (tb, o, d, cap, eps)))
-        return anyhit(tb, o, d, cap, eps)
-    bt.tri_bvh_nearest, bt.tri_bvh_anyhit = rec_nearest, rec_anyhit
-    try:
-        render.render_camera(loaded, 0, spp=PT_SPP, ldr=True)
-    finally:
-        bt.tri_bvh_nearest, bt.tri_bvh_anyhit = nearest, anyhit
+    calls = record_queries(render, bt, loaded, PT_SPP)
     bounces, nees = [], []
     for i, (kind, args) in enumerate(calls):
         o = args[1]
@@ -592,7 +793,8 @@ def capture_pt_wavefronts(render, bt, loaded):
             max(nees, key=lambda a: live_lanes(a[2])))
 
 
-def rock_pt_phase(render, bt, intersect, load_scene, dev, card):
+def rock_pt_phase(render, bt, intersect, load_scene, dev, card, per_draw,
+                  draw_s):
     """Phase 15; returns (launches, max |dt|, any-hit mismatches)."""
     xml = os.path.join(SCENES, "rock100k_pt.xml")
     rp = load_scene(xml, dev)
@@ -613,7 +815,7 @@ def rock_pt_phase(render, bt, intersect, load_scene, dev, card):
           frame_mean=float(img.mean()))
 
     bounce, nee = capture_pt_wavefronts(render, bt, rp)
-    errs, mism, times = [], [], {}
+    errs, mism = [], []
     tb, o, d, eps = bounce
     live = live_lanes(d)
     err, bad, hits, occ = compare(bt, tb, o, d,
@@ -624,9 +826,9 @@ def rock_pt_phase(render, bt, intersect, load_scene, dev, card):
           "wavefront of its fullest band", rays=o.x.shape[0], live=live,
           max_abs_t_err=err, anyhit_mismatches=bad, hits=hits, occluded=occ)
     dec = bt.decode(tb)
-    times["nearest"] = (
-        cuda_ms(lambda: bt.tri_bvh_nearest(tb, o, d, eps), 20),
-        cuda_ms(lambda: intersect._tri_bvh_candidates(dec, o, d, eps), 1))
+    kernel_time(bt, "nearest", "rock100k_pt first diffuse bounce", tb, o, d,
+                eps, None, cuda_ms(lambda: intersect._tri_bvh_candidates(
+                    dec, o, d, eps), 1), card)
     tb, o, d, cap, eps = nee
     live = live_lanes(d)
     err, bad, hits, occ = compare(bt, tb, o, d, cap, eps)
@@ -635,20 +837,20 @@ def rock_pt_phase(render, bt, intersect, load_scene, dev, card):
     phase("kernel_vs_plain", case="rock100k_pt first NEE wavefront of its "
           "fullest band, per-ray caps", rays=o.x.shape[0], live=live,
           max_abs_t_err=err, anyhit_mismatches=bad, hits=hits, occluded=occ)
-    times["anyhit"] = (
-        cuda_ms(lambda: bt.tri_bvh_anyhit(tb, o, d, cap, eps), 20),
-        cuda_ms(lambda: intersect._tri_bvh_anyhit(dec, o, d, cap, eps), 1))
-    for name, wave in (("nearest", "diffuse bounce"), ("anyhit", "NEE")):
-        phase("kernel_time", kernel=name,
-              wavefront=f"rock100k_pt {PT_RES}x{PT_RES} {PT_SPP} spp first "
-              f"{wave}", kernel_ms=times[name][0], plain_ms=times[name][1],
-              card=card)
+    dec = bt.decode(tb)
+    kernel_time(bt, "anyhit", "rock100k_pt first NEE", tb, o, d, eps, cap,
+                cuda_ms(lambda: intersect._tri_bvh_anyhit(
+                    dec, o, d, cap, eps), 1), card)
 
     rp.cameras[0] = render.with_spp(rp.cameras[0], PT_SPP)
     secs = frame_times(render, rp)
+    med = statistics.median(secs)
     phase("frame_time", scene="rock100k_pt", res=PT_RES, spp=PT_SPP,
-          median_s=statistics.median(secs), samples_s=secs,
+          median_s=med, samples_s=secs,
           gross_rays=render.gross_rays(rp.scene, rp.cameras[0]), card=card)
+    prof = profile_frame(render, rp, med, draw_s)
+    phase("profile", scene="rock100k_pt", res=PT_RES, spp=PT_SPP,
+          rng_kernels=prof["rng_draws"] * per_draw, **prof, card=card)
 
     # kernel = plain: one small frame through each, same RNG
     nearest, anyhit = bt.tri_bvh_nearest, bt.tri_bvh_anyhit
@@ -701,7 +903,9 @@ def main() -> int:
     _, build_s, log = bt.build_kernels()
     regs = [ln.strip() for ln in log.splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill", log)]
     phase("build", seconds=build_s, ptxas=regs)
+    check(not any(spills), f"ptxas reports register spills: {regs}")
 
     # ---- 3. kernel vs plain on the card ----
     errs, mism = [], []
@@ -730,6 +934,9 @@ def main() -> int:
         phase("kernel_vs_plain", case=case, rays=rays.o.x.shape[0],
               max_abs_t_err=err, anyhit_mismatches=bad, hits=hits,
               occluded=occ)
+    err, bad = edge_phase(bt, render, loaded, tb, shadow, cap, eps, dev)
+    errs.append(err)
+    mism.append(bad)
 
     # ---- 4. main path ----
     main_s, launches, img = main_path(render, bt, loaded, "rock100k")
@@ -760,19 +967,15 @@ def main() -> int:
 
     dec = bt.decode(tb)
     timing = {
-        "nearest": (
-            cuda_ms(lambda: bt.tri_bvh_nearest(tb, prim.o, prim.d, eps), 20),
+        "nearest": kernel_time(
+            bt, "nearest", "rock100k primary", tb, prim.o, prim.d, eps, None,
             cuda_ms(lambda: intersect._tri_bvh_candidates(
-                dec, prim.o, prim.d, eps), 1)),
-        "anyhit": (
-            cuda_ms(lambda: bt.tri_bvh_anyhit(tb, shadow.o, shadow.d, cap,
-                                              eps), 20),
-            cuda_ms(lambda: intersect._tri_bvh_anyhit(
-                dec, shadow.o, shadow.d, cap, eps), 1)),
+                dec, prim.o, prim.d, eps), 1), card),
+        "anyhit": kernel_time(
+            bt, "anyhit", "rock100k first shadow", tb, shadow.o, shadow.d,
+            eps, cap, cuda_ms(lambda: intersect._tri_bvh_anyhit(
+                dec, shadow.o, shadow.d, cap, eps), 1), card),
     }
-    for name, (k_ms, p_ms) in timing.items():
-        phase("kernel_time", kernel=name, wavefront="400x400 rock100k",
-              kernel_ms=k_ms, plain_ms=p_ms, card=card)
     # any-hit answers are booleans, so their |kernel - plain| is 0 or 1
     err_by = {"nearest": max(errs), "anyhit": float(max(mism) > 0)}
 
@@ -873,20 +1076,24 @@ def main() -> int:
           median_s=statistics.median(secs), samples_s=secs,
           load_s=load_s, card=card)
     packs = bt.decode_multi(mt)
-    timing["nearest_multi"] = (
-        cuda_ms(lambda: bt.tri_bvh_nearest_multi(mt, bprim.o, bprim.d,
-                                                 beps), 20),
-        cuda_ms(lambda: intersect._tri_bvh_candidates_multi(
-            packs, bprim.o, bprim.d, beps), 1))
-    timing["anyhit_multi"] = (
-        cuda_ms(lambda: bt.tri_bvh_anyhit_multi(mt, bshadow.o, bshadow.d,
-                                                bcap, beps), 20),
-        cuda_ms(lambda: intersect._tri_bvh_anyhit_multi(
-            packs, bshadow.o, bshadow.d, bcap, beps), 1))
-    for name in ("nearest_multi", "anyhit_multi"):
-        k_ms, p_ms = timing[name]
-        phase("kernel_time", kernel=name, wavefront="400x400 rock1800k",
-              kernel_ms=k_ms, plain_ms=p_ms, card=card)
+    timing["nearest_multi"] = kernel_time(
+        bt, "nearest_multi", "rock1800k primary", mt, bprim.o, bprim.d, beps,
+        None, cuda_ms(lambda: intersect._tri_bvh_candidates_multi(
+            packs, bprim.o, bprim.d, beps), 1), card)
+    timing["anyhit_multi"] = kernel_time(
+        bt, "anyhit_multi", "rock1800k first shadow", mt, bshadow.o,
+        bshadow.d, beps, bcap, cuda_ms(
+            lambda: intersect._tri_bvh_anyhit_multi(
+                packs, bshadow.o, bshadow.d, bcap, beps), 1), card)
+    # the single-pack kernels on instances_rock's batched query
+    for name, wave, rays, rcap in (
+            ("nearest", "instances_rock primary, 37 instances", iprim,
+             None),
+            ("anyhit", "instances_rock first shadow, 37 instances",
+             ishadow, icap.repeat(len(gis)))):
+        o, d = intersect._concat_local_rays(inst.scene, gis, rays)
+        kernel_time(bt, name, wave, itb, o, d, inst.scene.int_eps, rcap,
+                    None, card)
 
     # probe: the single-pack kernels over ONE BVH of the same triangles
     verts_np = big.scene.vertices.cpu().numpy()
@@ -927,6 +1134,9 @@ def main() -> int:
           per_group_median_s=statistics.median(per_group),
           per_group_s=per_group, per_group_launches=per_group_launches,
           card=card)
+    phase("profile", scene="instances_rock", res=400, spp=1,
+          **profile_frame(render, inst, statistics.median(batched), 0.0),
+          card=card)
 
     # ---- 10-15. the RNG, multi-sample frames and the path tracer ----
     per_draw, draw_s = rng_phase(dev)
@@ -936,7 +1146,7 @@ def main() -> int:
     cornell_phase(render, load_scene, dev, card, per_draw, draw_s)
     analytic_phase(render, load_scene, dev)
     pt_launches, pt_err, pt_bad = rock_pt_phase(
-        render, bt, intersect, load_scene, dev, card)
+        render, bt, intersect, load_scene, dev, card, per_draw, draw_s)
     for k in ("nearest", "anyhit"):
         launches[k] += (inst_launches[k] + ms_launches[k] + pt_launches[k]
                         + big_launches[k])
@@ -948,7 +1158,10 @@ def main() -> int:
         "source": "raytracer795_tpu_torch/csrc/bvh_traverse.cu",
         "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": err_by[name], "ms": timing[name][0],
-        "plain_ms": timing[name][1]} for name in REPLACES]
+        "plain_ms": timing[name][1],
+        "bound_ms": timing[name][2]["bound_ms"],
+        "bound_by": timing[name][2]["bound_by"],
+        "library_ms": None} for name in REPLACES]
     phase("wall", seconds=time.perf_counter() - wall0)
     print(card)
     print(json.dumps({"kernels": kernels}))

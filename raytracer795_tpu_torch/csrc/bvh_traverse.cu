@@ -17,34 +17,83 @@
 // per-lane walks _tri_bvh_candidates and _tri_bvh_anyhit of
 // raytracer795_tpu/ops/intersect.py compute, but not the way they do it.
 // The TPU kernels walk a whole 64x128-ray block with one scalar node
-// pointer and per-lane ancestor masks. Here one thread walks one ray down
-// the stackless skip-link tree of ops/bvh.py:
-//   hit inner node i -> i + 1;   miss, or leaf done -> miss[i];
-// so each thread is exact per lane by construction: no packet consensus,
-// no ancestor bitmask, no 9-triangles-a-row packing.
+// pointer and per-lane ancestor masks. Here one lane walks one ray down the
+// stackless skip-link tree of ops/bvh.py:
+//   hit inner node i -> i + 1;   missed inner node i -> miss[i];
+//   leaf i (tested when hit) -> i + 1,
+// as a leaf's skip link is always i + 1 (the builders emit what follows a
+// leaf right after it; ops/bvh_traverse.py checks it when it builds the
+// tables). So each lane is exact by construction: no packet consensus, no
+// ancestor bitmask, no 9-triangles-a-row packing.
 //
-// What bounds them on the card. The walk does a few dozen flops per node
-// and per triangle, and every step first waits for a dependent load: the
-// next node's two float4s, then a leaf's triangles, with addresses that
-// differ from thread to thread. The tables for a 100k-triangle mesh are a
-// few MB and stay in the 50 MB L2, so the kernels are bound by the latency
-// of those divergent L2 loads, not by arithmetic or HBM bandwidth. The
-// tile-swizzled lane order of models/camera.py (64x64-pixel tiles) puts
-// neighbouring pixels in one warp, so a warp's rays take nearly the same
-// path and share most of their loads; shadow and bounce wavefronts keep
-// that order. Making them faster (persistent threads, wider trees,
-// treelets) is later work.
+// What bounds the single-pack kernels on the card. A ray of rock100k's
+// primary wavefront visits ~62 nodes and tests ~106 triangles: ~20
+// operations a node and ~26 a triangle up to t, about 0.64 G operations a
+// 160k-ray wavefront, or ~19 us at the card's fp32 rate without FMA
+// contraction. The tables of a 100k-triangle mesh (~6.5 MB) stay in the
+// 50 MB L2, so bytes bound nothing. What keeps a SIMT walk far from that
+// bound is idle lanes and latency: lanes that wait while one lane of the
+// warp tests a leaf (about 80% of the arithmetic is triangle tests), lanes
+// whose rays finished early or were dead from the start (NaN or
+// zero-direction lanes of retired paths), and the dependent load that
+// starts each step.
+//
+// The design of rt795_bvh_nearest and rt795_bvh_anyhit. Each step was
+// timed on the card against the design without it, in one run
+// (tools/torch_traverse_steps.py, on an H100 80GB HBM3 at 700 W); PERF.md
+// keeps the numbers. (a) and (b) change the wrapper's tables too, so they
+// were timed only as part of the whole, against the kernels they replaced:
+// 2.2-2.7x faster on rock100k's and rock100k_pt's wavefronts.
+//   (a) Kept. One 32-byte sector per node: (bmin.xyz, link), (bmax.xyz,
+//       count), with link = first for a leaf and miss for an inner node. A
+//       node step reads one sector and nothing else.
+//   (b) Kept. 48-byte triangle rows, three float4s: a, e1 = a - b,
+//       e2 = a - c and ng = e1 x e2 packed as 12 floats, rebuilt from the
+//       live vertices on every query (the counterpart of fresh_tri_rows).
+//   (c) The next triangle's row is loaded before the current one is tested:
+//       kept, worth 4-15% on every wavefront. The early exit (t first, beta
+//       and gamma only where a hit can count) was dropped: once the warp
+//       tests its leaves together, the branch costs about what the dozen
+//       operations it skips save (nearest up to 6% slower on coherent
+//       rays, any-hit within 2%), and one test function is simpler.
+//   (d) Kept: the step that counts. A while-while loop (Aila and Laine,
+//       2009): a lane advances through inner nodes until it reaches a leaf
+//       that passes, and waits there; the warp tests its lanes' leaves
+//       together. Without it the kernels are 1.9-2.9x slower. No lane tests a
+//       leaf later than the per-lane oracle does, so each ray's node
+//       sequence, and with it every prune, update and |t| tie, is the
+//       oracle's. The any-hit kernel uses the same loop: walking on past a
+//       pending leaf, which its freedom of order allows, measured 3-12%
+//       slower.
+//   (e) Kept. Persistent warps with dynamic fetch: the grid fills the card
+//       once (SMs x resident blocks); each warp takes rays 32 at a time from
+//       a global counter (scratch zeroed by the wrapper), writes dead rays
+//       (NaN, zero direction) out at fetch so they never enter a walk, and
+//       refills its idle lanes once kRefillIdle of them are idle. A ray's
+//       outputs depend on its own walk only, never on which lane took it.
+//       The persistent grid is worth up to 9% (instances_rock's 5.9M-lane
+//       queries); the refill threshold, from 1 to 32 idle lanes, moves no
+//       wavefront by more than 5% either way, about the spread between
+//       runs.
+//   (f) Not tried: the node table in shared memory. The one small tree on
+//       the main path (instances_rock's 511 nodes, 16 KB) serves 5.9M lanes
+//       that make 1.5 node visits each, so that query is bound by its ray
+//       bytes, and rock100k's 262 KB do not fit.
+// Also measured and dropped: loading both nodes that may come next before
+// the current node's test ends (5-21% slower), and __launch_bounds__ for
+// 10 blocks an SM (spills, 4-32% slower). PTX max.NaN/min.NaN in place of
+// max_nan/min_nan gained 0-5%, inside the run-to-run noise, and stays out.
+// The kernels use 56-62 registers and spill nothing (nvcc -Xptxas -v).
 //
 // Tables (built by ops/bvh_traverse.py from the FlatBVHs and the live
 // vertices):
-//   nodes [2M] float4: (bmin.xyz, first as int bits), (bmax.xyz, count as
-//         int bits); count == 0 marks an inner node.
-//   miss  [M]  int skip links; M means done (pack-local in multi tables).
-//   tris  [4T] float4 in BVH (leaf-contiguous) order: a, e1 = a - b,
-//         e2 = a - c, ng = e1 x e2 (w unused).
+//   nodes [2M] float4: (bmin.xyz, link as int bits), (bmax.xyz, count as
+//         int bits); count == 0 marks an inner node. In multi tables the
+//         links of inner nodes are pack-local and leaf `first`s global.
+//   tris  [3T] float4 in BVH (leaf-contiguous) order: (a.xyz, e1.x),
+//         (e1.yz, e2.xy), (e2.z, ng.xyz).
 //   offsets [K + 1] int (multi tables only): pack p owns nodes
-//         [offsets[p], offsets[p + 1]), its root first; leaf `first`
-//         indices are global into the one tris table.
+//         [offsets[p], offsets[p + 1]), its root first.
 //
 // Arithmetic follows the JAX package operation by operation: correctly
 // rounded division (build without --use_fast_math), no FMA contraction
@@ -54,25 +103,25 @@
 // does. No kernel adds the behind-the-origin box culls of the TPU
 // kernels: a walk here visits exactly the nodes of the per-lane oracle.
 //
-// The multi-pack kernels. On the TPU the pack axis is a sequential grid
-// dimension and a separate TLAS pass gives each 16x128-ray block a culled
-// pack list sorted front to back by root entry, so that the per-lane
-// `entry > best` prune kills occluded packs at their root. Here one thread
-// does all of it for its own ray: it slab-tests the K pack roots with the
-// same math, keeps the packs whose root it hits in a list sorted by root
-// entry (insertion sort of (entry bits, pack) pairs; NaN and infinite
-// entries last, as the TLAS sanitizes them), and walks each listed pack's
-// tree from its root, carrying one best (key, t, idx) from pack to pack.
-// The order is a heuristic only: every listed pack is walked with the
-// same prune as the per-pack oracle walk, so no mask, key or t depends on
-// it; where two packs hold hits of exactly equal |t|, the pack reached
-// first keeps its prim id (the per-pack oracle merge keeps the lower
-// pack). The any-hit kernel drops packs whose root entry exceeds its cap
-// and stops at its first hit. What bounds them: the K root tests read the
-// same 2K float4s in every thread (broadcast loads, cached), and the list
-// lives in local memory (kMaxPacks x 8 bytes a thread, L1-cached). A
-// 1.8M-triangle group's triangle table is ~115 MB, over twice the L2, so
-// leaf loads also reach HBM; coherent warps share them.
+// The multi-pack kernels keep the one-thread-a-ray walk of their first
+// port and read the tables above. On the TPU the pack axis is a sequential
+// grid dimension and a separate TLAS pass gives each 16x128-ray block a
+// culled pack list sorted front to back by root entry, so that the
+// per-lane `entry > best` prune kills occluded packs at their root. Here
+// one thread does all of it for its own ray: it slab-tests the K pack
+// roots with the same math, keeps the packs whose root it hits in a list
+// sorted by root entry (insertion sort of (entry bits, pack) pairs; NaN and
+// infinite entries last, as the TLAS sanitizes them), and walks each
+// listed pack's tree from its root, carrying one best (key, t, idx) from
+// pack to pack. The order is a heuristic only: every listed pack is walked
+// with the same prune as the per-pack oracle walk, so no mask, key or t
+// depends on it; where two packs hold hits of exactly equal |t|, the pack
+// reached first keeps its prim id (the per-pack oracle merge keeps the
+// lower pack). The any-hit kernel drops packs whose root entry exceeds its
+// cap and stops at its first hit. The list lives in local memory
+// (kMaxPacks x 8 bytes a thread, L1-cached). A 1.8M-triangle group's
+// triangle table is ~86 MB, over the L2, so leaf loads also reach HBM;
+// coherent warps share them.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -80,12 +129,28 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr float kBig = 3.0e38f;
 // most packs a multi-pack kernel takes (ops/bvh_traverse.py MAX_PACKS)
 constexpr int kMaxPacks = 64;
+// a persistent warp takes new rays for its idle lanes once at least this
+// many of its 32 lanes are idle
+constexpr int kRefillIdle = 8;
+// devices whose resident block counts are remembered
+constexpr int kMaxDevices = 64;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+// one node: lo = (bmin.xyz, link bits), hi = (bmax.xyz, count bits)
+struct Node {
+  float4 lo, hi;
+};
+
+// one triangle row: p = (a.xyz, e1.x), q = (e1.yz, e2.xy), r = (e2.z, ng.xyz)
+struct Tri {
+  float4 p, q, r;
 };
 
 __device__ __forceinline__ bool is_nan(float x) { return x != x; }
@@ -122,6 +187,25 @@ __device__ __forceinline__ Ray load_ray(const float* ox, const float* oy,
   return r;
 }
 
+__device__ __forceinline__ Node load_node(const float4* __restrict__ nodes,
+                                          int i) {
+  return Node{__ldg(nodes + 2 * i), __ldg(nodes + 2 * i + 1)};
+}
+
+__device__ __forceinline__ int node_link(const Node& n) {
+  return __float_as_int(n.lo.w);
+}
+
+__device__ __forceinline__ int node_count(const Node& n) {
+  return __float_as_int(n.hi.w);
+}
+
+__device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris,
+                                        int k) {
+  const float4* row = tris + 3 * k;
+  return Tri{__ldg(row), __ldg(row + 1), __ldg(row + 2)};
+}
+
 // One axis of _slab_test (intersect.py:371-387): d == 0 takes the
 // negative branch.
 __device__ __forceinline__ void slab_axis(float o, float d, float inv,
@@ -146,91 +230,153 @@ __device__ __forceinline__ bool slab(const Ray& r, float4 lo, float4 hi,
   return !(exit < entry);
 }
 
-// Cramer test of _tri_test (intersect.py:204-221), same operation order.
-__device__ __forceinline__ bool tri_test(const Ray& r,
-                                         const float4* __restrict__ tri,
+// The Cramer test of _tri_test (intersect.py:204-221) in its operation
+// order: whether the hit is accepted, and its t in *t_out. Every triangle
+// computes beta and gamma: skipping them where no update can follow makes
+// the warp branch, which measured slower (tools/torch_traverse_steps.py).
+__device__ __forceinline__ bool tri_test(const Ray& r, const Tri& tr,
                                          float eps, float* t_out) {
-  const float4 a = tri[0];
-  const float4 e1 = tri[1];
-  const float4 e2 = tri[2];
-  const float4 ng = tri[3];
-  const float aox = a.x - r.ox;
-  const float aoy = a.y - r.oy;
-  const float aoz = a.z - r.oz;
+  const float aox = tr.p.x - r.ox;
+  const float aoy = tr.p.y - r.oy;
+  const float aoz = tr.p.z - r.oz;
   // e2 x d
-  const float cx = e2.y * r.dz - e2.z * r.dy;
-  const float cy = e2.z * r.dx - e2.x * r.dz;
-  const float cz = e2.x * r.dy - e2.y * r.dx;
-  const float det = e1.x * cx + e1.y * cy + e1.z * cz;
+  const float cx = tr.q.w * r.dz - tr.r.x * r.dy;
+  const float cy = tr.r.x * r.dx - tr.q.z * r.dz;
+  const float cz = tr.q.z * r.dy - tr.q.w * r.dx;
+  const float det = tr.p.w * cx + tr.q.x * cy + tr.q.y * cz;
   const float inv_det = 1.0f / det;
   const float beta = (aox * cx + aoy * cy + aoz * cz) * inv_det;
   // e1 x d
-  const float gx = e1.y * r.dz - e1.z * r.dy;
-  const float gy = e1.z * r.dx - e1.x * r.dz;
-  const float gz = e1.x * r.dy - e1.y * r.dx;
+  const float gx = tr.q.x * r.dz - tr.q.y * r.dy;
+  const float gy = tr.q.y * r.dx - tr.p.w * r.dz;
+  const float gz = tr.p.w * r.dy - tr.q.x * r.dx;
   const float gamma = -(aox * gx + aoy * gy + aoz * gz) * inv_det;
-  const float t = (ng.x * aox + ng.y * aoy + ng.z * aoz) * inv_det;
+  const float t = (tr.r.y * aox + tr.r.z * aoy + tr.r.w * aoz) * inv_det;
   *t_out = t;
-  return t >= -eps && beta >= -eps && gamma >= -eps && beta + gamma <= 1.0f;
+  return (t >= -eps) & (beta >= -eps) & (gamma >= -eps) &
+         (beta + gamma <= 1.0f);
+}
+
+// The triangles [first, first + count) of a leaf, in order, with the
+// strict-less |t| update of _tri_bvh_candidates. The next row is loaded
+// before the current one is tested.
+__device__ __forceinline__ void nearest_leaf(
+    const Ray& r, const float4* __restrict__ tris, float eps, int first,
+    int count, float& best_key, float& best_t, int& best_idx) {
+  const int last = first + count - 1;
+  Tri cur = load_tri(tris, first);
+  for (int k = first; k <= last; ++k) {
+    const Tri nxt = load_tri(tris, min(k + 1, last));
+    float t;
+    if (tri_test(r, cur, eps, &t) & (fabsf(t) < best_key)) {
+      best_key = fabsf(t);
+      best_t = t;
+      best_idx = k;
+    }
+    cur = nxt;
+  }
+}
+
+// Any triangle of a leaf with an accepted hit at 0 < t < cap.
+__device__ __forceinline__ bool anyhit_leaf(const Ray& r,
+                                            const float4* __restrict__ tris,
+                                            float eps, float cap, int first,
+                                            int count) {
+  const int last = first + count - 1;
+  Tri cur = load_tri(tris, first);
+  for (int k = first; k <= last; ++k) {
+    const Tri nxt = load_tri(tris, min(k + 1, last));
+    float t;
+    if (tri_test(r, cur, eps, &t) & (t > 0.0f) & (t < cap)) {
+      return true;
+    }
+    cur = nxt;
+  }
+  return false;
 }
 
 // _tri_bvh_candidates per thread over the tree of nodes [base, end): the
 // nearest triangle by |t|, strict-less updates in leaf order, nodes pruned
-// when their entry exceeds the best. miss links are relative to base.
+// when their entry exceeds the best. Inner links are relative to base.
 __device__ __forceinline__ void nearest_walk(
     const Ray& r, const float4* __restrict__ nodes,
-    const int* __restrict__ miss, const float4* __restrict__ tris, float eps,
-    int base, int end, float& best_key, float& best_t, int& best_idx) {
+    const float4* __restrict__ tris, float eps, int base, int end,
+    float& best_key, float& best_t, int& best_idx) {
   int node = base;
   while (node < end) {
-    const float4 lo = nodes[2 * node];
-    const float4 hi = nodes[2 * node + 1];
+    const Node n = load_node(nodes, node);
     float entry;
-    const bool hit = slab(r, lo, hi, &entry) && !(entry > best_key);
-    const int count = __float_as_int(hi.w);
+    const bool hit = slab(r, n.lo, n.hi, &entry) && !(entry > best_key);
+    const int count = node_count(n);
     if (hit && count > 0) {
-      const int first = __float_as_int(lo.w);
-      for (int k = first; k < first + count; ++k) {
-        float t;
-        const bool ok = tri_test(r, tris + 4 * k, eps, &t);
-        const float key = ok ? fabsf(t) : kBig;
-        if (key < best_key) {
-          best_key = key;
-          best_t = t;
-          best_idx = k;
-        }
-      }
+      nearest_leaf(r, tris, eps, node_link(n), count, best_key, best_t,
+                   best_idx);
     }
-    node = (hit && count == 0) ? node + 1 : base + miss[node];
+    node = (hit || count > 0) ? node + 1 : base + node_link(n);
   }
 }
 
 // _tri_bvh_anyhit per thread over the tree of nodes [base, end): true at
 // the first triangle with 0 < t < cap; nodes pruned when their entry
 // exceeds the cap.
-__device__ __forceinline__ bool anyhit_walk(
-    const Ray& r, const float4* __restrict__ nodes,
-    const int* __restrict__ miss, const float4* __restrict__ tris, float eps,
-    float cap, int base, int end) {
+__device__ __forceinline__ bool anyhit_walk(const Ray& r,
+                                            const float4* __restrict__ nodes,
+                                            const float4* __restrict__ tris,
+                                            float eps, float cap, int base,
+                                            int end) {
   int node = base;
   while (node < end) {
-    const float4 lo = nodes[2 * node];
-    const float4 hi = nodes[2 * node + 1];
+    const Node n = load_node(nodes, node);
     float entry;
-    const bool hit = slab(r, lo, hi, &entry) && !(entry > cap);
-    const int count = __float_as_int(hi.w);
-    if (hit && count > 0) {
-      const int first = __float_as_int(lo.w);
-      for (int k = first; k < first + count; ++k) {
-        float t;
-        if (tri_test(r, tris + 4 * k, eps, &t) && t > 0.0f && t < cap) {
-          return true;
-        }
-      }
+    const bool hit = slab(r, n.lo, n.hi, &entry) && !(entry > cap);
+    const int count = node_count(n);
+    if (hit && count > 0 &&
+        anyhit_leaf(r, tris, eps, cap, node_link(n), count)) {
+      return true;
     }
-    node = (hit && count == 0) ? node + 1 : base + miss[node];
+    node = (hit || count > 0) ? node + 1 : base + node_link(n);
   }
   return false;
+}
+
+// Advances a lane from `node` through inner nodes to its next leaf that
+// passes (box hit, entry not above `limit`), or to the end of the tree.
+// Returns the leaf's triangle count (0 at the end) and its first triangle
+// in *first; `node` ends just past the leaf. (Loading both nodes that may
+// come next before the slab test ends measured slower: the loads it adds
+// cost more than the latency it hides, tools/torch_traverse_steps.py.)
+__device__ __forceinline__ int next_leaf(const Ray& r,
+                                         const float4* __restrict__ nodes,
+                                         int n_nodes, float limit, int& node,
+                                         int* first) {
+  while (node < n_nodes) {
+    const Node n = load_node(nodes, node);
+    float entry;
+    const bool hit = slab(r, n.lo, n.hi, &entry) && !(entry > limit);
+    const int count = node_count(n);
+    const int link = node_link(n);
+    node = (hit || count > 0) ? node + 1 : link;
+    if (hit && count > 0) {
+      *first = link;
+      return count;
+    }
+  }
+  return 0;
+}
+
+// The warp's idle lanes (`idle`, a ballot) take the next __popc(idle) rays
+// of the counter, in lane order. Called by all 32 lanes; each gets the
+// first ray taken.
+__device__ __forceinline__ int take_rays(int* __restrict__ next_ray,
+                                         unsigned idle) {
+  int base = 0;
+  if ((threadIdx.x & 31) == 0) base = atomicAdd(next_ray, __popc(idle));
+  return __shfl_sync(kFullWarp, base, 0);
+}
+
+// This lane's rank among the lanes of `mask` below it.
+__device__ __forceinline__ int lane_rank(unsigned mask) {
+  return __popc(mask & ((1u << (threadIdx.x & 31)) - 1u));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -238,24 +384,58 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ oz, const float* __restrict__ dx,
                    const float* __restrict__ dy, const float* __restrict__ dz,
                    const float4* __restrict__ nodes,
-                   const int* __restrict__ miss,
                    const float4* __restrict__ tris,
                    const float* __restrict__ eps_ptr, int n_nodes,
-                   int n_rays, float* __restrict__ key_out,
-                   float* __restrict__ t_out, int* __restrict__ idx_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+                   int n_rays, int* __restrict__ next_ray,
+                   float* __restrict__ key_out, float* __restrict__ t_out,
+                   int* __restrict__ idx_out) {
+  const float eps = *eps_ptr;
+  Ray r{};
+  int ray = -1;  // the ray this lane walks; -1 while the lane is idle
+  int node = 0;
   float best_key = kBig;
   float best_t = 0.0f;
   int best_idx = 0;
-  if (!dead_ray(r)) {
-    nearest_walk(r, nodes, miss, tris, *eps_ptr, 0, n_nodes, best_key,
-                 best_t, best_idx);
+  bool more = true;  // warp-uniform: the counter may hold rays still
+  for (;;) {
+    const unsigned idle = __ballot_sync(kFullWarp, ray < 0);
+    if (more && __popc(idle) >= kRefillIdle) {
+      const int base = take_rays(next_ray, idle);
+      more = base + __popc(idle) < n_rays;
+      const int i = base + lane_rank(idle);
+      if (ray < 0 && i < n_rays) {
+        r = load_ray(ox, oy, oz, dx, dy, dz, i);
+        if (dead_ray(r)) {
+          key_out[i] = kBig;
+          t_out[i] = 0.0f;
+          idx_out[i] = 0;
+        } else {
+          ray = i;
+          node = 0;
+          best_key = kBig;
+          best_t = 0.0f;
+          best_idx = 0;
+        }
+      }
+    }
+    if (__ballot_sync(kFullWarp, ray >= 0) == 0) {
+      if (!more) return;
+      continue;
+    }
+    int first = 0;
+    const int count =
+        ray >= 0 ? next_leaf(r, nodes, n_nodes, best_key, node, &first) : 0;
+    __syncwarp();
+    if (count > 0) {
+      nearest_leaf(r, tris, eps, first, count, best_key, best_t, best_idx);
+    }
+    if (ray >= 0 && node >= n_nodes) {
+      key_out[ray] = best_key;
+      t_out[ray] = best_t;
+      idx_out[ray] = best_idx;
+      ray = -1;
+    }
   }
-  key_out[i] = best_key;
-  t_out[i] = best_t;
-  idx_out[i] = best_idx;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -264,17 +444,49 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ dy, const float* __restrict__ dz,
                   const float* __restrict__ t_cap,
                   const float4* __restrict__ nodes,
-                  const int* __restrict__ miss,
                   const float4* __restrict__ tris,
                   const float* __restrict__ eps_ptr, int n_nodes, int n_rays,
+                  int* __restrict__ next_ray,
                   unsigned char* __restrict__ found_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const bool found =
-      !dead_ray(r) &&
-      anyhit_walk(r, nodes, miss, tris, *eps_ptr, t_cap[i], 0, n_nodes);
-  found_out[i] = found ? 1 : 0;
+  const float eps = *eps_ptr;
+  Ray r{};
+  int ray = -1;  // the ray this lane walks; -1 while the lane is idle
+  int node = 0;
+  float cap = 0.0f;
+  bool more = true;  // warp-uniform: the counter may hold rays still
+  for (;;) {
+    const unsigned idle = __ballot_sync(kFullWarp, ray < 0);
+    if (more && __popc(idle) >= kRefillIdle) {
+      const int base = take_rays(next_ray, idle);
+      more = base + __popc(idle) < n_rays;
+      const int i = base + lane_rank(idle);
+      if (ray < 0 && i < n_rays) {
+        r = load_ray(ox, oy, oz, dx, dy, dz, i);
+        if (dead_ray(r)) {
+          found_out[i] = 0;
+        } else {
+          ray = i;
+          node = 0;
+          cap = t_cap[i];
+        }
+      }
+    }
+    if (__ballot_sync(kFullWarp, ray >= 0) == 0) {
+      if (!more) return;
+      continue;
+    }
+    int first = 0;
+    const int count =
+        ray >= 0 ? next_leaf(r, nodes, n_nodes, cap, node, &first) : 0;
+    __syncwarp();
+    if (count > 0 && anyhit_leaf(r, tris, eps, cap, first, count)) {
+      found_out[ray] = 1;
+      ray = -1;
+    } else if (ray >= 0 && node >= n_nodes) {
+      found_out[ray] = 0;
+      ray = -1;
+    }
+  }
 }
 
 // The packs whose root box the ray hits (and, for any-hit, whose root
@@ -289,10 +501,9 @@ __device__ __forceinline__ int pack_order(const Ray& r,
                                           unsigned long long* order) {
   int n = 0;
   for (int p = 0; p < n_packs; ++p) {
-    const int root = offsets[p];
+    const Node root = load_node(nodes, offsets[p]);
     float entry;
-    if (!slab(r, nodes[2 * root], nodes[2 * root + 1], &entry) ||
-        entry > cap) {
+    if (!slab(r, root.lo, root.hi, &entry) || entry > cap) {
       continue;
     }
     // fabsf(NaN) < inf is false: NaN and +/-inf entries sort last
@@ -319,11 +530,10 @@ __global__ void __launch_bounds__(kThreads) nearest_multi_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
-    const float4* __restrict__ nodes, const int* __restrict__ miss,
-    const int* __restrict__ offsets, const float4* __restrict__ tris,
-    const float* __restrict__ eps_ptr, int n_packs, int n_rays,
-    float* __restrict__ key_out, float* __restrict__ t_out,
-    int* __restrict__ idx_out) {
+    const float4* __restrict__ nodes, const int* __restrict__ offsets,
+    const float4* __restrict__ tris, const float* __restrict__ eps_ptr,
+    int n_packs, int n_rays, float* __restrict__ key_out,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const float eps = *eps_ptr;
@@ -336,8 +546,8 @@ __global__ void __launch_bounds__(kThreads) nearest_multi_kernel(
     const int n = pack_order(r, nodes, offsets, n_packs, CUDART_INF_F, order);
     for (int j = 0; j < n; ++j) {
       const int p = listed_pack(order[j]);
-      nearest_walk(r, nodes, miss, tris, eps, offsets[p], offsets[p + 1],
-                   best_key, best_t, best_idx);
+      nearest_walk(r, nodes, tris, eps, offsets[p], offsets[p + 1], best_key,
+                   best_t, best_idx);
     }
   }
   key_out[i] = best_key;
@@ -350,9 +560,9 @@ __global__ void __launch_bounds__(kThreads) anyhit_multi_kernel(
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ t_cap, const float4* __restrict__ nodes,
-    const int* __restrict__ miss, const int* __restrict__ offsets,
-    const float4* __restrict__ tris, const float* __restrict__ eps_ptr,
-    int n_packs, int n_rays, unsigned char* __restrict__ found_out) {
+    const int* __restrict__ offsets, const float4* __restrict__ tris,
+    const float* __restrict__ eps_ptr, int n_packs, int n_rays,
+    unsigned char* __restrict__ found_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const float eps = *eps_ptr;
@@ -364,7 +574,7 @@ __global__ void __launch_bounds__(kThreads) anyhit_multi_kernel(
     const int n = pack_order(r, nodes, offsets, n_packs, cap, order);
     for (int j = 0; j < n && !found; ++j) {
       const int p = listed_pack(order[j]);
-      found = anyhit_walk(r, nodes, miss, tris, eps, cap, offsets[p],
+      found = anyhit_walk(r, nodes, tris, eps, cap, offsets[p],
                           offsets[p + 1]);
     }
   }
@@ -373,23 +583,50 @@ __global__ void __launch_bounds__(kThreads) anyhit_multi_kernel(
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+int g_nearest_resident[kMaxDevices];
+int g_anyhit_resident[kMaxDevices];
+
+// Blocks of a persistent launch: the blocks the current device holds at
+// once (SMs x resident blocks of `kernel`, remembered per device in
+// `cache`), and no more than the rays need.
+template <typename Kernel>
+int persistent_blocks(Kernel kernel, int* cache, int n_rays) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int resident = dev < kMaxDevices ? cache[dev] : 0;
+  if (resident <= 0) {
+    int sms = 0;
+    int per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  0);
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+    if (dev < kMaxDevices) cache[dev] = resident;
+  }
+  const int needed = blocks_for(n_rays);
+  return needed < resident ? needed : resident;
+}
+
 }  // namespace
 
 // C entry points for ctypes. Each launches on the given stream, does not
 // synchronize, and returns cudaGetLastError() (0 when the launch was
-// accepted).
+// accepted). `next_ray` of the single-pack kernels is one int the wrapper
+// zeroes: the persistent warps' ray counter.
 extern "C" int rt795_bvh_nearest(const float* ox, const float* oy,
                                  const float* oz, const float* dx,
                                  const float* dy, const float* dz,
-                                 const void* nodes, const int* miss,
-                                 const void* tris, const float* int_eps,
-                                 int n_nodes, int n_rays, float* key,
+                                 const void* nodes, const void* tris,
+                                 const float* int_eps, int n_nodes,
+                                 int n_rays, int* next_ray, float* key,
                                  float* t, int* idx, void* stream) {
-  nearest_kernel<<<blocks_for(n_rays), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, static_cast<const float4*>(nodes), miss,
-      static_cast<const float4*>(tris), int_eps, n_nodes, n_rays, key, t,
-      idx);
+  if (n_rays <= 0) return 0;
+  const int blocks =
+      persistent_blocks(nearest_kernel, g_nearest_resident, n_rays);
+  nearest_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ox, oy, oz, dx, dy, dz, static_cast<const float4*>(nodes),
+      static_cast<const float4*>(tris), int_eps, n_nodes, n_rays, next_ray,
+      key, t, idx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -397,44 +634,48 @@ extern "C" int rt795_bvh_anyhit(const float* ox, const float* oy,
                                 const float* oz, const float* dx,
                                 const float* dy, const float* dz,
                                 const float* t_cap, const void* nodes,
-                                const int* miss, const void* tris,
-                                const float* int_eps, int n_nodes, int n_rays,
+                                const void* tris, const float* int_eps,
+                                int n_nodes, int n_rays, int* next_ray,
                                 unsigned char* found, void* stream) {
-  anyhit_kernel<<<blocks_for(n_rays), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, t_cap, static_cast<const float4*>(nodes), miss,
-      static_cast<const float4*>(tris), int_eps, n_nodes, n_rays, found);
+  if (n_rays <= 0) return 0;
+  const int blocks =
+      persistent_blocks(anyhit_kernel, g_anyhit_resident, n_rays);
+  anyhit_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ox, oy, oz, dx, dy, dz, t_cap, static_cast<const float4*>(nodes),
+      static_cast<const float4*>(tris), int_eps, n_nodes, n_rays, next_ray,
+      found);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rt795_bvh_nearest_multi(
     const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, const void* nodes, const int* miss,
-    const int* offsets, const void* tris, const float* int_eps, int n_packs,
-    int n_rays, float* key, float* t, int* idx, void* stream) {
+    const float* dy, const float* dz, const void* nodes, const int* offsets,
+    const void* tris, const float* int_eps, int n_packs, int n_rays,
+    float* key, float* t, int* idx, void* stream) {
   if (n_packs < 1 || n_packs > kMaxPacks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (n_rays <= 0) return 0;
   nearest_multi_kernel<<<blocks_for(n_rays), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, static_cast<const float4*>(nodes), miss,
-      offsets, static_cast<const float4*>(tris), int_eps, n_packs, n_rays,
-      key, t, idx);
+      ox, oy, oz, dx, dy, dz, static_cast<const float4*>(nodes), offsets,
+      static_cast<const float4*>(tris), int_eps, n_packs, n_rays, key, t,
+      idx);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rt795_bvh_anyhit_multi(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const float* t_cap, const void* nodes,
-    const int* miss, const int* offsets, const void* tris,
-    const float* int_eps, int n_packs, int n_rays, unsigned char* found,
-    void* stream) {
+    const int* offsets, const void* tris, const float* int_eps, int n_packs,
+    int n_rays, unsigned char* found, void* stream) {
   if (n_packs < 1 || n_packs > kMaxPacks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (n_rays <= 0) return 0;
   anyhit_multi_kernel<<<blocks_for(n_rays), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, t_cap, static_cast<const float4*>(nodes), miss,
+      ox, oy, oz, dx, dy, dz, t_cap, static_cast<const float4*>(nodes),
       offsets, static_cast<const float4*>(tris), int_eps, n_packs, n_rays,
       found);
   return static_cast<int>(cudaGetLastError());

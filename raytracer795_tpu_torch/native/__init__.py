@@ -1,10 +1,9 @@
 """Host-side native code, compiled on first use.
 
-The flat-BVH builder is the JAX package's own C++ source
-(``raytracer795_tpu/native/bvh_builder.cpp``), compiled here by file path:
-reading the file imports nothing of that package, whose ``__init__``
-imports jax. ``g++ -O3 -shared`` builds it into ``build/native/`` at the
-repository root, keyed by a hash of the source, and ``ctypes`` loads it.
+The flat-BVH builder is the port's own copy of the JAX package's C++
+source, ``csrc/bvh_builder.cpp``: the port reads no file of that package.
+``g++ -O3 -shared`` builds it into ``build/native/`` at the repository
+root, keyed by a hash of the source, and ``ctypes`` loads it.
 Where no compiler is available ``load_bvh_builder`` returns None and
 ops/bvh.py uses its numpy builder, which gives the same hits.
 """
@@ -17,11 +16,9 @@ import os
 import subprocess
 import threading
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-BVH_BUILDER_SRC = os.path.join(_REPO, "raytracer795_tpu", "native",
-                               "bvh_builder.cpp")
-BUILD_DIR = os.path.join(_REPO, "build", "native")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BVH_BUILDER_SRC = os.path.join(_PKG, "csrc", "bvh_builder.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "native")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}

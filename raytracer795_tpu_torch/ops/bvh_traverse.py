@@ -15,7 +15,8 @@ Each wrapper takes the kernel path for CUDA tensors and the plain walk of
 ops/intersect.py for CPU tensors, and for nothing else: a CUDA tensor
 launches the kernel or raises. The plain walks read the same tables,
 decoded (``decode``, ``decode_multi``), and are what the kernels are held
-to.
+to. ``walk_work`` is the plain walk with counters: the work behind the
+kernels' bounds.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` into
 a shared library with a plain C interface under ``build/cuda/`` at the
@@ -56,6 +57,11 @@ LAUNCHES = {"nearest": 0, "anyhit": 0, "nearest_multi": 0,
 # packs a multi-pack kernel takes: its per-ray pack list is this long
 # (csrc/bvh_traverse.cu kMaxPacks); rock1800k has 28
 MAX_PACKS = 64
+# pointer arguments of each C entry point before and after its two ints:
+# rays (6), [t_cap], nodes, [offsets], tris, int_eps; then node or pack
+# count, ray count; then [ray counter], outputs, stream
+C_ARGS = {"nearest": (9, 5), "anyhit": (10, 3), "nearest_multi": (10, 4),
+          "anyhit_multi": (11, 2)}
 
 _log = logging.getLogger(__name__)
 _LOCK = threading.Lock()
@@ -68,13 +74,13 @@ _NODES = WeakIdKeyDictionary()
 class TraverseTables:
     """The kernels' tables for one group (see csrc/bvh_traverse.cu).
 
-    ``nodes`` [M, 8] f32: bmin.xyz, first (int32 bits), bmax.xyz, count
-    (int32 bits). ``miss`` [M] int32. ``tris`` [T, 16] f32 in BVH order:
-    a, e1 = a-b, e2 = a-c, ng = e1 x e2, each padded to a float4.
+    ``nodes`` [M, 8] f32, one 32-byte row a node: bmin.xyz, link (int32
+    bits), bmax.xyz, count (int32 bits); link is ``first`` for a leaf and
+    ``miss`` for an inner node (a leaf's skip link is always node + 1).
+    ``tris`` [T, 12] f32 in BVH order: a, e1 = a-b, e2 = a-c, ng = e1 x e2.
     """
 
     nodes: torch.Tensor
-    miss: torch.Tensor
     tris: torch.Tensor
     max_leaf: int
 
@@ -99,18 +105,31 @@ class Decoded(NamedTuple):
     n_nodes: int
 
 
-def _node_rows(bmin, bmax, first, count) -> torch.Tensor:
+def _links(bvh: T.FlatBVH) -> torch.Tensor:
+    """Each node's link: ``first`` for a leaf, ``miss`` for an inner node.
+
+    The builders emit whatever follows a leaf right after it, so a leaf's
+    skip link is node + 1 and the walk needs no ``miss`` for it; a tree
+    where that fails is refused.
+    """
+    leaf = bvh.count > 0
+    after = torch.arange(1, bvh.count.shape[0] + 1, dtype=torch.int32,
+                         device=bvh.count.device)
+    if not bool(torch.all(~leaf | (bvh.miss == after))):
+        raise ValueError("a leaf's skip link is not node + 1")
+    return torch.where(leaf, bvh.first, bvh.miss)
+
+
+def _node_rows(bmin, bmax, link, count) -> torch.Tensor:
     # assembled as int32 so the index fields keep their bits exactly
-    return torch.cat([bmin.view(torch.int32), first[:, None],
+    return torch.cat([bmin.view(torch.int32), link[:, None],
                       bmax.view(torch.int32), count[:, None]],
                      dim=1).view(torch.float32)
 
 
 def _tri_rows(vertices: torch.Tensor, tri_vidx: torch.Tensor) -> torch.Tensor:
     a, e1, e2, ng = intersect.tri_components(vertices, tri_vidx)
-    z = torch.zeros_like(a.x)
-    return torch.stack([a.x, a.y, a.z, z, e1.x, e1.y, e1.z, z,
-                        e2.x, e2.y, e2.z, z, ng.x, ng.y, ng.z, z], dim=1)
+    return torch.stack([*a, *e1, *e2, *ng], dim=1)
 
 
 def _build_nodes(key: torch.Tensor, make):
@@ -129,30 +148,33 @@ def build_tables(bvh: T.FlatBVH, vertices: torch.Tensor,
     JAX package's ``fresh_tri_rows``): a vertex update moves the geometry
     the kernels intersect, while node bounds stay those of the build."""
     nodes = _build_nodes(bvh.first, lambda: _node_rows(
-        bvh.bmin, bvh.bmax, bvh.first, bvh.count))
-    return TraverseTables(
-        nodes=nodes, miss=bvh.miss.contiguous(),
-        tris=_tri_rows(vertices, tri_vidx), max_leaf=bvh.max_leaf)
+        bvh.bmin, bvh.bmax, _links(bvh), bvh.count))
+    return TraverseTables(nodes=nodes, tris=_tri_rows(vertices, tri_vidx),
+                          max_leaf=bvh.max_leaf)
 
 
 def _decode_nodes(nodes: torch.Tensor):
+    """bmin, bmax, first, count and the tree-local miss of a node table."""
     ni = nodes.view(torch.int32)
+    link, count = ni[:, 3], ni[:, 7]
+    leaf = count > 0
+    after = torch.arange(1, nodes.shape[0] + 1, dtype=torch.int32,
+                         device=nodes.device)
     return (Vec3(nodes[:, 0], nodes[:, 1], nodes[:, 2]),
-            Vec3(nodes[:, 4], nodes[:, 5], nodes[:, 6]), ni[:, 3], ni[:, 7])
+            Vec3(nodes[:, 4], nodes[:, 5], nodes[:, 6]),
+            torch.where(leaf, link, 0), count, torch.where(leaf, after, link))
 
 
 def _decode_tris(tr: torch.Tensor):
-    return (Vec3(tr[:, 0], tr[:, 1], tr[:, 2]),
-            Vec3(tr[:, 4], tr[:, 5], tr[:, 6]),
-            Vec3(tr[:, 8], tr[:, 9], tr[:, 10]),
-            Vec3(tr[:, 12], tr[:, 13], tr[:, 14]))
+    return tuple(Vec3(tr[:, k], tr[:, k + 1], tr[:, k + 2])
+                 for k in (0, 3, 6, 9))
 
 
 def decode(tb: TraverseTables) -> Decoded:
-    bmin, bmax, first, count = _decode_nodes(tb.nodes)
+    bmin, bmax, first, count, miss = _decode_nodes(tb.nodes)
     a, e1, e2, ng = _decode_tris(tb.tris)
     return Decoded(bmin=bmin, bmax=bmax, first=first, count=count,
-                   miss=tb.miss, a=a, e1=e1, e2=e2, ng=ng,
+                   miss=miss, a=a, e1=e1, e2=e2, ng=ng,
                    max_leaf=tb.max_leaf, n_nodes=tb.n_nodes)
 
 
@@ -160,15 +182,14 @@ def decode(tb: TraverseTables) -> Decoded:
 class MultiTables:
     """The multi-pack kernels' tables for one group of K packs.
 
-    ``nodes`` [M, 8] f32 and ``miss`` [M] int32: every pack's nodes in the
-    layout of ``TraverseTables``, pack after pack; ``miss`` links stay
-    pack-local and ``first`` is global. ``offsets`` [K + 1] int32: pack p
-    owns nodes [offsets[p], offsets[p + 1]); its root is node offsets[p].
-    ``tris`` [T, 16] f32: the group's one triangle table, in pack order.
+    ``nodes`` [M, 8] f32: every pack's nodes in the layout of
+    ``TraverseTables``, pack after pack; inner links stay pack-local and
+    leaf ``first``s are global. ``offsets`` [K + 1] int32: pack p owns
+    nodes [offsets[p], offsets[p + 1]); its root is node offsets[p].
+    ``tris`` [T, 12] f32: the group's one triangle table, in pack order.
     """
 
     nodes: torch.Tensor
-    miss: torch.Tensor
     offsets: torch.Tensor
     tris: torch.Tensor
     max_leaf: int
@@ -181,8 +202,8 @@ class MultiTables:
 def build_multi_tables(pack_bvhs, vertices: torch.Tensor,
                        tri_vidx: torch.Tensor) -> MultiTables:
     """Tables from a group's pack FlatBVHs and the LIVE vertices, as
-    ``build_tables`` makes them for one FlatBVH: the packs' nodes, links
-    and offsets once per group, the triangle rows on every call."""
+    ``build_tables`` makes them for one FlatBVH: the packs' nodes and
+    offsets once per group, the triangle rows on every call."""
     def make():
         def cat(field):
             return torch.cat([getattr(f, field) for f in pack_bvhs])
@@ -190,32 +211,106 @@ def build_multi_tables(pack_bvhs, vertices: torch.Tensor,
         sizes = [0] + [f.first.shape[0] for f in pack_bvhs]
         offsets = torch.tensor(sizes, dtype=torch.int32).cumsum(
             0, dtype=torch.int32)
-        return (_node_rows(cat("bmin"), cat("bmax"), cat("first"),
-                           cat("count")),
-                cat("miss"), offsets.to(pack_bvhs[0].first.device))
+        links = torch.cat([_links(f) for f in pack_bvhs])
+        return (_node_rows(cat("bmin"), cat("bmax"), links, cat("count")),
+                offsets.to(pack_bvhs[0].first.device))
 
-    nodes, miss, offsets = _build_nodes(pack_bvhs[0].first, make)
+    nodes, offsets = _build_nodes(pack_bvhs[0].first, make)
     return MultiTables(
-        nodes=nodes, miss=miss, offsets=offsets,
-        tris=_tri_rows(vertices, tri_vidx),
+        nodes=nodes, offsets=offsets, tris=_tri_rows(vertices, tri_vidx),
         max_leaf=max(f.max_leaf for f in pack_bvhs))
 
 
 def decode_multi(mt: MultiTables) -> Tuple[Decoded, ...]:
     """The tables read back as one ``Decoded`` per pack, each over the
     group's whole triangle table (its ``first`` is global)."""
-    bmin, bmax, first, count = _decode_nodes(mt.nodes)
     a, e1, e2, ng = _decode_tris(mt.tris)
     bounds = mt.offsets.tolist()
     packs = []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
+        bmin, bmax, first, count, miss = _decode_nodes(mt.nodes[lo:hi])
         packs.append(Decoded(
-            bmin=Vec3(*(c[lo:hi] for c in bmin)),
-            bmax=Vec3(*(c[lo:hi] for c in bmax)),
-            first=first[lo:hi], count=count[lo:hi], miss=mt.miss[lo:hi],
+            bmin=bmin, bmax=bmax, first=first, count=count, miss=miss,
             a=a, e1=e1, e2=e2, ng=ng, max_leaf=mt.max_leaf,
             n_nodes=hi - lo))
     return tuple(packs)
+
+
+class Work(NamedTuple):
+    """A walk's work per ray, [N] int64 each."""
+
+    nodes: torch.Tensor     # node visits (slab tests)
+    leaves: torch.Tensor    # leaves whose triangles were tested
+    tris: torch.Tensor      # triangle tests
+
+
+def _counted_walk(dec: Decoded, o: Vec3, d: Vec3, int_eps, limit, cap,
+                  work: torch.Tensor):
+    """One tree's plain walk with counters added into ``work`` [3, N]: the
+    walk of ``intersect._tri_bvh_candidates`` when ``cap`` is None (``limit``
+    [N], each ray's best |t| so far, is updated), else that of
+    ``intersect._tri_bvh_anyhit``, whose answers are returned. An any-hit
+    leaf counts its triangles up to the first that occludes."""
+    found = None if cap is None else torch.zeros_like(cap, dtype=torch.bool)
+    w = intersect._Walk(dec, o, d, int_eps)
+    lim = (limit if cap is None else cap)[w.lane]
+    while w.lane.shape[0]:
+        box_hit, entry, is_leaf = w.visit()
+        box_hit = box_hit & ~(entry > lim)
+        work[0, w.lane] += 1
+        li = torch.nonzero(box_hit & is_leaf)[:, 0]
+        got = torch.zeros_like(box_hit)
+        if li.shape[0]:
+            ok, tt, _ = w.leaf_tests(li)
+            count = dec.count[w.node[li]].long()
+            work[1, w.lane[li]] += 1
+            if cap is None:
+                k = torch.where(ok, torch.abs(tt), intersect._BIG)
+                lim[li] = torch.minimum(lim[li], k.min(dim=1).values)
+                work[2, w.lane[li]] += count
+            else:
+                occ = ok & (tt > 0) & (tt < lim[li][:, None])
+                hit = occ.any(dim=1)
+                upto = occ.to(torch.uint8).argmax(dim=1) + 1
+                work[2, w.lane[li]] += torch.where(hit, upto, count)
+                got[li] = hit
+        w.advance(box_hit & ~is_leaf)
+        done = got | (w.node >= dec.n_nodes)
+        (lanes, lim_d, got_d), (lim, _) = w.retire(done, lim, got)
+        if cap is None:
+            limit[lanes] = lim_d
+        else:
+            found[lanes] = got_d
+    return found
+
+
+def walk_work(tables, o: Vec3, d: Vec3, int_eps, t_cap=None) -> Work:
+    """Node visits, leaf visits and triangle tests of each ray's walk: the
+    plain nearest walk (``t_cap`` None) or any-hit walk, with counters.
+
+    For ``MultiTables`` the packs are walked in pack order, each from its
+    root, with the best |t| (nearest) carried from pack to pack and a ray
+    leaving at its first occluder (any-hit). It counts the work behind a
+    kernel's bound (chip_smoke.py); nothing on the render path calls it.
+    """
+    n = o.x.shape[0]
+    dev = o.x.device
+    work = torch.zeros((3, n), dtype=torch.int64, device=dev)
+    best = torch.full((n,), intersect._BIG, device=dev)
+    trees = (decode_multi(tables) if isinstance(tables, MultiTables)
+             else (decode(tables),))
+    live = torch.arange(n, device=dev)
+    for dec in trees:
+        if t_cap is None:
+            _counted_walk(dec, o, d, int_eps, best, None, work)
+            continue
+        sub = torch.zeros((3, live.shape[0]), dtype=torch.int64, device=dev)
+        found = _counted_walk(dec, intersect._gather3(o, live),
+                              intersect._gather3(d, live), int_eps, None,
+                              t_cap[live], sub)
+        work[:, live] += sub
+        live = live[~found]
+    return Work(*work)
 
 
 def _nvcc() -> str:
@@ -254,11 +349,7 @@ def build_kernels():
             _log.info("built %s:\n%s", so, log)
         lib = ctypes.CDLL(so)
         p, i = ctypes.c_void_p, ctypes.c_int
-        # rays (6), [t_cap], nodes, miss, [offsets], tris, int_eps; then
-        # node or pack count, ray count; outputs; stream
-        for name, n_in, n_out in (("nearest", 10, 4), ("anyhit", 11, 2),
-                                  ("nearest_multi", 11, 4),
-                                  ("anyhit_multi", 12, 2)):
+        for name, (n_in, n_out) in C_ARGS.items():
             fn = getattr(lib, f"rt795_bvh_{name}")
             fn.argtypes = [p] * n_in + [i, i] + [p] * n_out
             fn.restype = i
@@ -278,7 +369,7 @@ def _check(name, x, dtype, shape, device):
 def _kernel_args(tb, o: Vec3, d: Vec3, int_eps, extra=()):
     """Validated pointer arguments shared by the kernels: (rays, extra
     per-ray inputs, tables). ``tb`` is a ``TraverseTables`` or a
-    ``MultiTables``; the latter adds its pack offsets after ``miss``."""
+    ``MultiTables``; the latter adds its pack offsets after ``nodes``."""
     dev = o.x.device
     if dev.type != "cuda":
         raise ValueError(f"the traversal kernels run on CUDA, not {dev}")
@@ -289,15 +380,14 @@ def _kernel_args(tb, o: Vec3, d: Vec3, int_eps, extra=()):
         _check(name, c, torch.float32, (n,), dev)
     m = tb.nodes.shape[0]
     _check("nodes", tb.nodes, torch.float32, (m, 8), dev)
-    _check("miss", tb.miss, torch.int32, (m,), dev)
-    tables = [tb.nodes, tb.miss]
+    tables = [tb.nodes]
     if isinstance(tb, MultiTables):
         if not 1 <= tb.n_packs <= MAX_PACKS:
             raise ValueError(f"the multi-pack kernels take 1 to {MAX_PACKS} "
                              f"packs, got {tb.n_packs}")
         _check("offsets", tb.offsets, torch.int32, (tb.n_packs + 1,), dev)
         tables.append(tb.offsets)
-    _check("tris", tb.tris, torch.float32, (tb.tris.shape[0], 16), dev)
+    _check("tris", tb.tris, torch.float32, (tb.tris.shape[0], 12), dev)
     _check("int_eps", int_eps, torch.float32, (), dev)
     tables += [tb.tris, int_eps]
     return ([c.data_ptr() for c in (*o, *d)],
@@ -315,6 +405,14 @@ def _launch(name: str, *args):
     LAUNCHES[name] += 1
 
 
+def _scratch(name, device):
+    """The single-pack kernels' ray counter (their persistent warps take
+    rays from it), zeroed; the multi-pack kernels take none."""
+    if name.endswith("_multi"):
+        return []
+    return [torch.zeros((1,), dtype=torch.int32, device=device)]
+
+
 def _nearest(name, tb, o: Vec3, d: Vec3, int_eps, size: int):
     rays, _, tables = _kernel_args(tb, o, d, int_eps)
     n = o.x.shape[0]
@@ -322,8 +420,10 @@ def _nearest(name, tb, o: Vec3, d: Vec3, int_eps, size: int):
     t = torch.empty_like(key)
     idx = torch.empty((n,), dtype=torch.int32, device=o.x.device)
     if n:
+        scratch = _scratch(name, o.x.device)
         with torch.cuda.device(o.x.device):
-            _launch(name, *rays, *tables, size, n, key.data_ptr(),
+            _launch(name, *rays, *tables, size, n,
+                    *(c.data_ptr() for c in scratch), key.data_ptr(),
                     t.data_ptr(), idx.data_ptr())
     return key, t, idx
 
@@ -334,8 +434,10 @@ def _anyhit(name, tb, o: Vec3, d: Vec3, t_cap, int_eps, size: int):
     n = o.x.shape[0]
     found = torch.empty((n,), dtype=torch.bool, device=o.x.device)
     if n:
+        scratch = _scratch(name, o.x.device)
         with torch.cuda.device(o.x.device):
-            _launch(name, *rays, cap, *tables, size, n, found.data_ptr())
+            _launch(name, *rays, cap, *tables, size, n,
+                    *(c.data_ptr() for c in scratch), found.data_ptr())
     return found
 
 

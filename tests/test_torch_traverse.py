@@ -13,6 +13,8 @@ run on a card without jax: ``python -m pytest --noconftest -p
 no:cacheprovider -m cuda tests/test_torch_traverse.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -124,27 +126,22 @@ def test_plain_walks_match_oracle_random_mesh(t, n, seed):
                          _oracle(flat, verts, tv, o, d, cap))
 
 
-def test_plain_walks_match_oracle_moved_vertices():
-    """Vertices move after the build: both walk the stale boxes and test
-    the LIVE triangles (tables rebuilt from the moved vertices)."""
-    t, n, seed = 333, 1024, 5
+def _moved_vertices_case(t=333, n=1024, seed=5):
+    """A tree built over a mesh whose vertices then move: (flat, built
+    vertices, live vertices, tri_vidx, o, d, cap)."""
     verts, tri_vidx = _random_mesh(t, seed)
     flat, tv = _build(verts, tri_vidx)
     rng = np.random.default_rng(seed + 1)
-    verts2 = verts + rng.normal(scale=0.05, size=verts.shape).astype(
+    moved = verts + rng.normal(scale=0.05, size=verts.shape).astype(
         np.float32)
     o, d = _random_rays(n, seed + 10)
-    cap = np.full(n, 3.0, np.float32)
-    got = _port(flat, verts2, tv, o, d, cap)
-    assert _assert_match(got, _oracle(flat, verts2, tv, o, d, cap))
-    # the move really changed the answer
-    assert not np.array_equal(got[0], _port(flat, verts, tv, o, d, cap)[0])
+    return flat, verts, moved, tv, o, d, np.full(n, 3.0, np.float32)
 
 
-def test_plain_walks_match_oracle_axis_aligned_vertex_origins():
+def _axis_aligned_case(t=222, n=1280, seed=7):
     """Rays with a zero direction component whose origins sit EXACTLY on
-    node-box bounds and vertex coordinates (the d == 0 NaN-entry corner)."""
-    t, seed, n = 222, 7, 1280
+    node-box bounds and vertex coordinates: (flat, vertices, tri_vidx, o,
+    d, cap)."""
     verts, tri_vidx = _random_mesh(t, seed)
     flat, tv = _build(verts, tri_vidx)
     rng = np.random.default_rng(seed + 1)
@@ -159,13 +156,31 @@ def test_plain_walks_match_oracle_axis_aligned_vertex_origins():
     other = (main_ax + 1) % 3
     d[diag, other[diag]] = rng.choice([-1.0, 1.0], diag.sum())
     d[np.arange(n), zero_ax] = 0.0
-    cap = np.full(n, 3.0, np.float32)
+    return flat, verts, tv, o, d, np.full(n, 3.0, np.float32)
+
+
+def test_plain_walks_match_oracle_moved_vertices():
+    """Vertices move after the build: both walk the stale boxes and test
+    the LIVE triangles (tables rebuilt from the moved vertices)."""
+    flat, verts, verts2, tv, o, d, cap = _moved_vertices_case()
+    got = _port(flat, verts2, tv, o, d, cap)
+    assert _assert_match(got, _oracle(flat, verts2, tv, o, d, cap))
+    # the move really changed the answer
+    assert not np.array_equal(got[0], _port(flat, verts, tv, o, d, cap)[0])
+
+
+def test_plain_walks_match_oracle_axis_aligned_vertex_origins():
+    """Rays with a zero direction component whose origins sit EXACTLY on
+    node-box bounds and vertex coordinates (the d == 0 NaN-entry corner)."""
+    flat, verts, tv, o, d, cap = _axis_aligned_case()
     _assert_match(_port(flat, verts, tv, o, d, cap),
                   _oracle(flat, verts, tv, o, d, cap))
 
 
 def test_tables_decode_to_bvh_and_triangles():
-    """The float4 tables read back as the FlatBVH and a, a-b, a-c, ng."""
+    """The tables read back as the FlatBVH and a, a-b, a-c, ng: a node is
+    one 32-byte row (bmin, link, bmax, count) with link = first for a leaf
+    and miss for an inner node; a triangle is 12 floats, a, e1, e2, ng."""
     from raytracer795_tpu_torch.ops import bvh_traverse
     from raytracer795_tpu_torch.scene.types import to_device
 
@@ -175,7 +190,13 @@ def test_tables_decode_to_bvh_and_triangles():
                                    torch.from_numpy(verts),
                                    torch.from_numpy(tv))
     assert tb.nodes.shape == (flat.first.shape[0], 8)
-    assert tb.tris.shape == (777, 16)
+    assert tb.tris.shape == (777, 12)
+    leaf = flat.count > 0
+    np.testing.assert_array_equal(
+        tb.nodes.view(torch.int32)[:, 3].numpy(),
+        np.where(leaf, flat.first, flat.miss))
+    np.testing.assert_array_equal(tb.nodes.view(torch.int32)[:, 7].numpy(),
+                                  flat.count)
     dec = bvh_traverse.decode(tb)
     np.testing.assert_array_equal(np.stack(dec.bmin, -1), flat.bmin)
     np.testing.assert_array_equal(np.stack(dec.bmax, -1), flat.bmax)
@@ -184,10 +205,11 @@ def test_tables_decode_to_bvh_and_triangles():
                                       getattr(flat, name))
     a, b, c = verts[tv[:, 0]], verts[tv[:, 1]], verts[tv[:, 2]]
     e1, e2 = a - b, a - c
-    for got, want in ((dec.a, a), (dec.e1, e1), (dec.e2, e2),
-                      (dec.ng, np.cross(e1, e2))):
+    ng = np.cross(e1, e2)
+    for got, want in ((dec.a, a), (dec.e1, e1), (dec.e2, e2), (dec.ng, ng)):
         np.testing.assert_array_equal(np.stack(got, -1), want)
-    np.testing.assert_array_equal(tb.tris[:, 3::4].numpy(), 0.0)
+    np.testing.assert_array_equal(tb.tris.numpy(),
+                                  np.concatenate([a, e1, e2, ng], axis=1))
 
 
 def test_node_tables_made_once_per_build():
@@ -207,7 +229,7 @@ def test_node_tables_made_once_per_build():
         tree = to_device(host_tree, "cpu")
         tb = build(tree, torch.from_numpy(verts), tv_t)
         again = build(tree, moved, tv_t)
-        assert again.nodes is tb.nodes and again.miss.equal(tb.miss)
+        assert again.nodes is tb.nodes
         np.testing.assert_array_equal(
             again.tris[:, :3].numpy(), moved[tv_t[:, 0].long()].numpy())
         # another build of the same tree gets tables of its own
@@ -307,3 +329,259 @@ def test_multi_kernels_match_plain_walks_on_card(t, n, seed, pack_tris):
             tj = n_ @ (a[j] - o[lane]) / (n_ @ d[lane])
             np.testing.assert_allclose(abs(tj), key[lane], rtol=1e-4)
     assert hit.any() and found.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["moved_vertices", "axis_aligned"])
+def test_kernels_match_plain_walks_on_card_edge_cases(case):
+    """The single-pack kernels against the plain walks, both on the card,
+    on the moved-vertex and the axis-aligned vertex-exact cases: every
+    output equal bit for bit, and again on a second launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    if case == "moved_vertices":
+        flat, _, verts, tv, o, d, cap = _moved_vertices_case()
+    else:
+        flat, verts, tv, o, d, cap = _axis_aligned_case()
+    got = _port(flat, verts, tv, o, d, cap, device="cuda")
+    again = _port(flat, verts, tv, o, d, cap, device="cuda")
+    ref = _port(flat, verts, tv, o, d, cap, device="cpu")
+    for a, b, c in zip(got, again, ref):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(a, b)
+
+
+def _rock6k_bvh(tmp_path):
+    """The FlatBVH the port's loader builds for rock6k (rock100k.xml with
+    the 6,242-triangle rock6k.ply)."""
+    from raytracer795_tpu_torch.scene.loader import load_scene
+
+    scenes = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scenes")
+    src = open(os.path.join(scenes, "rock100k.xml")).read()
+    src = src.replace('plyFile="rock100k.ply"',
+                      f'plyFile="{os.path.join(scenes, "rock6k.ply")}"')
+    path = os.path.join(str(tmp_path), "rock6k.xml")
+    with open(path, "w") as f:
+        f.write(src)
+    (group,) = load_scene(path, "cpu").scene.groups
+    return group.bvh
+
+
+@pytest.mark.parametrize("builder", ["numpy", "native", "rock6k", "packs"])
+def test_leaf_skip_link_is_next_node(builder, tmp_path):
+    """A leaf's miss is node + 1 in every FlatBVH the port builds (the numpy
+    and native builders, the loader's rock6k tree, the Morton packs), so a
+    node row carries one link; tables of a tree where it fails are
+    refused."""
+    from raytracer795_tpu_torch.ops import bvh, bvh_traverse
+    from raytracer795_tpu_torch.scene.types import to_device
+
+    verts, tri_vidx = _random_mesh(600, 9)
+    if builder in ("numpy", "native"):
+        trees = [_build(verts, tri_vidx, use_native=builder == "native")[0]]
+    elif builder == "rock6k":
+        trees = [_rock6k_bvh(tmp_path)]
+    else:
+        trees = list(bvh.build_multipack(verts, tri_vidx, pack_tris=128)[1])
+        assert len(trees) == 5
+    for tree in trees:
+        count, miss = (np.asarray(tree.count), np.asarray(tree.miss))
+        leaf = np.nonzero(count > 0)[0]
+        assert leaf.shape[0] > 1
+        np.testing.assert_array_equal(miss[leaf], leaf + 1)
+    bad = to_device(trees[0], "cpu")
+    bad.miss = bad.miss.clone()
+    bad.miss[int(np.nonzero(np.asarray(trees[0].count) > 0)[0][0])] += 1
+    with pytest.raises(ValueError, match="node \\+ 1"):
+        bvh_traverse.build_tables(bad, torch.from_numpy(verts),
+                                  torch.from_numpy(tri_vidx))
+
+
+def _hand_built_tables():
+    """A root over two leaves: A = [0,1]x[0,1]x[0,1] with triangles 0
+    (z = 0.5) and 1 (z = 0.8), B = [1,2]x[0,1]x[0,1] with triangle 2
+    (z = 0.5); and four rays heading down -z: into A, into B, past the
+    root, and a NaN ray."""
+    from raytracer795_tpu_torch.ops import bvh_traverse
+    from raytracer795_tpu_torch.scene import types as T
+    from raytracer795_tpu_torch.scene.types import to_device
+    from raytracer795_tpu_torch.utils.vec3 import Vec3
+
+    flat = T.FlatBVH(
+        bmin=np.array([[0, 0, 0], [0, 0, 0], [1, 0, 0]], np.float32),
+        bmax=np.array([[2, 1, 1], [1, 1, 1], [2, 1, 1]], np.float32),
+        first=np.array([0, 0, 2], np.int32),
+        count=np.array([0, 2, 1], np.int32),
+        miss=np.array([3, 2, 3], np.int32), max_leaf=2)
+    verts = np.array([[-1, -1, 0.5], [3, -1, 0.5], [-1, 3, 0.5],
+                      [-1, -1, 0.8], [3, -1, 0.8], [-1, 3, 0.8],
+                      [1, -1, 0.5], [3, -1, 0.5], [1, 3, 0.5]], np.float32)
+    tb = bvh_traverse.build_tables(
+        to_device(flat, "cpu"), torch.from_numpy(verts),
+        torch.arange(9, dtype=torch.int32).reshape(3, 3))
+    o = torch.tensor([[0.4, 0.4, 2], [1.5, 0.5, 2], [5, 5, 2],
+                      [float("nan"), 0, 2]])
+    d = torch.tensor([[0.01, 0.01, -1.0]]).expand(4, 3)
+
+    def col(a):
+        return Vec3(*(a[:, k].contiguous() for k in range(3)))
+    return tb, col(o), col(d)
+
+
+@pytest.mark.parametrize("caps,want", [
+    # nearest: A tests both of its triangles and B is missed; B alone;
+    # the root alone; nothing
+    (None, ([3, 3, 1, 0], [1, 1, 0, 0], [2, 1, 0, 0])),
+    # any-hit: triangle 0 occludes first and the ray leaves after A
+    ((10.0, 10.0, 10.0, 10.0), ([2, 3, 1, 0], [1, 1, 0, 0], [1, 1, 0, 0])),
+    # caps below both of A's hits, and below the root's entry (1.0)
+    ((1.1, 0.5, 10.0, 10.0), ([3, 1, 1, 0], [1, 0, 0, 0], [2, 0, 0, 0]))])
+def test_walk_work_on_a_hand_built_tree(caps, want):
+    from raytracer795_tpu_torch.ops import bvh_traverse
+
+    tb, o, d = _hand_built_tables()
+    cap = None if caps is None else torch.tensor(caps)
+    work = bvh_traverse.walk_work(tb, o, d, torch.tensor(EPS), cap)
+    assert [w.tolist() for w in work] == [list(x) for x in want]
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_walk_work_counts_the_plain_walks_steps(anyhit, monkeypatch):
+    """On a random mesh, walk_work's node and leaf visits are the plain
+    walk's own (counted inside ``intersect._Walk``), and so are its
+    triangle tests, except that an any-hit leaf stops at its occluder."""
+    from raytracer795_tpu_torch.ops import bvh_traverse, intersect
+    from raytracer795_tpu_torch.scene.types import to_device
+    from raytracer795_tpu_torch.utils.vec3 import Vec3
+
+    verts, tri_vidx = _random_mesh(600, 8)
+    flat, tv = _build(verts, tri_vidx)
+    n = 1024
+    o, d = _random_rays(n, 18)
+    cap = torch.from_numpy(np.random.default_rng(28).uniform(
+        0.1, 5.0, n).astype(np.float32))
+    tb = bvh_traverse.build_tables(to_device(flat, "cpu"),
+                                   torch.from_numpy(verts),
+                                   torch.from_numpy(tv))
+
+    def col(a):
+        return Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                      for k in range(3)))
+    o, d = col(o), col(d)
+    eps = torch.tensor(EPS)
+    steps = torch.zeros((3, n), dtype=torch.int64)
+    visit, leaf_tests = intersect._Walk.visit, intersect._Walk.leaf_tests
+
+    def counted_visit(self):
+        steps[0, self.lane] += 1
+        return visit(self)
+
+    def counted_leaf_tests(self, li):
+        steps[1, self.lane[li]] += 1
+        steps[2, self.lane[li]] += self.tb.count[self.node[li]].long()
+        return leaf_tests(self, li)
+    monkeypatch.setattr(intersect._Walk, "visit", counted_visit)
+    monkeypatch.setattr(intersect._Walk, "leaf_tests", counted_leaf_tests)
+    dec = bvh_traverse.decode(tb)
+    if anyhit:
+        intersect._tri_bvh_anyhit(dec, o, d, cap, eps)
+    else:
+        intersect._tri_bvh_candidates(dec, o, d, eps)
+    monkeypatch.undo()
+    work = bvh_traverse.walk_work(tb, o, d, eps, cap if anyhit else None)
+    assert torch.equal(work.nodes, steps[0])
+    assert torch.equal(work.leaves, steps[1])
+    assert int(work.nodes.sum()) > 10 * n and int(work.leaves.sum()) > n
+    if anyhit:
+        assert bool((work.tris <= steps[2]).all())
+        assert bool((work.tris < steps[2]).any())
+    else:
+        assert torch.equal(work.tris, steps[2])
+
+
+def test_walk_work_over_packs():
+    """Over Morton packs, walk_work visits every pack's root for each live
+    ray and, carrying the best |t| from pack to pack, does no more work
+    than walking each pack on its own."""
+    from raytracer795_tpu_torch.ops import bvh, bvh_traverse, intersect
+    from raytracer795_tpu_torch.scene.types import to_device
+    from raytracer795_tpu_torch.utils.vec3 import Vec3
+
+    verts, tri_vidx = _random_mesh(600, 2)
+    perm, packs = bvh.build_multipack(verts, tri_vidx, pack_tris=128)
+    mt = bvh_traverse.build_multi_tables(
+        to_device(packs, "cpu"), torch.from_numpy(verts),
+        torch.from_numpy(tri_vidx[perm]))
+    o, d = _random_rays(2048, 12)
+    o, d = (Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                   for k in range(3))) for a in (o, d))
+    eps = torch.tensor(EPS)
+    work = bvh_traverse.walk_work(mt, o, d, eps)
+    live = ~intersect._dead_lanes(o, d)
+    assert bool((work.nodes[live] >= mt.n_packs).all())
+    assert int(work.nodes[~live].max()) == 0
+    apart = torch.zeros((3, 2048), dtype=torch.int64)
+    for pk in packs:
+        tb = bvh_traverse.build_tables(to_device(pk, "cpu"),
+                                       torch.from_numpy(verts),
+                                       torch.from_numpy(tri_vidx[perm]))
+        apart += torch.stack(bvh_traverse.walk_work(tb, o, d, eps))
+    assert bool((torch.stack(work) <= apart).all())
+    assert int(work.tris.sum()) < int(apart[2].sum())
+
+
+def test_native_builder_source_is_the_ports_own():
+    """The native builder compiles the port's copy of the JAX package's
+    source, which keeps that source's code below its header comment."""
+    import raytracer795_tpu_torch
+    from raytracer795_tpu_torch import native
+
+    pkg = os.path.dirname(os.path.abspath(raytracer795_tpu_torch.__file__))
+    src = os.path.realpath(native.BVH_BUILDER_SRC)
+    assert src.startswith(pkg + os.sep) and os.path.isfile(src)
+    jax_src = os.path.join(os.path.dirname(pkg), "raytracer795_tpu",
+                           "native", "bvh_builder.cpp")
+
+    def code(path):
+        text = open(path).read()
+        return text[text.index("#include"):]
+    assert code(src) == code(jax_src)
+    assert native.load_bvh_builder() is not None
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each C entry point takes the pointers ``C_ARGS`` declares around its
+    two ints: ctypes passes an undeclared argument as a 32-bit int, which
+    would cut a pointer."""
+    import re
+
+    from raytracer795_tpu_torch.ops import bvh_traverse
+
+    src = open(bvh_traverse.SOURCE).read()
+    for name, (n_in, n_out) in bvh_traverse.C_ARGS.items():
+        sig = re.search(r'extern "C" int rt795_bvh_%s\(([^)]*)\)' % name,
+                        src).group(1)
+        kinds = ["int" if re.fullmatch(r"\s*int \w+\s*", a) else "ptr"
+                 for a in sig.split(",")]
+        assert kinds == ["ptr"] * n_in + ["int"] * 2 + ["ptr"] * n_out, name
+
+
+def test_design_step_variants_apply_to_the_kernel_source():
+    """tools/torch_traverse_steps.py times each step of the kernels' design
+    through text substitutions of csrc/bvh_traverse.cu: every substitution
+    must still find its text, and every variant must be a source of its
+    own."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_traverse_steps",
+        os.path.join(root, "tools", "torch_traverse_steps.py"))
+    steps = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(steps)
+    src = open(steps.bt.SOURCE).read()
+    names = [name for name, _ in steps.VARIANTS]
+    assert names[0] == "design" and len(set(names)) == len(names)
+    made = [steps.variant_source(src, subs) for _, subs in steps.VARIANTS]
+    assert made[0] == src and len(set(made)) == len(made)
