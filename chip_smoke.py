@@ -24,18 +24,23 @@ non-zero and prints no result:
    lights, transforms, instances) must meet their bounds.
 5. times on this card: median of 5 rock100k frames after a warm-up at
    400x400 and 800x800 (1 spp), and kernel vs plain walk times for one
-   primary and one shadow wavefront at 400x400. Each kernel time (here and
+   primary, one shadow and the mirror-bounce wavefront at 400x400. Each kernel time (here and
    in phases 9 and 15) is printed beside its bound, the larger of the
    query's bytes over the memory rate and its operations (node visits
    and triangle tests counted by ``walk_work``) over the fp32 rate
    without FMA, and beside the kernel's time before (``BEFORE_MS``).
-6. multi-pack kernels vs plain, on the card: a random mesh cut into packs
-   (NaN, zero and d == 0 rays, per-lane caps), then rock1800k's primary
-   and first shadow wavefronts (tests/scenes/rock1800k.ply is written by
-   scene/assets.py when missing; 1,800,902 triangles in 28 packs). Hit
-   masks, |t| keys and any-hit answers must be equal, t within 2e-5, prim
-   ids equal except at exact |t| ties between packs, where both ids must
-   name triangles at that |t|.
+6. multi-pack kernels vs plain, on the card, each query twice: keys, t,
+   prim ids and any-hit answers must equal the plain per-pack walks' bit
+   for bit (``tie_lanes``, hit lanes whose ids differ, is printed and is
+   0), and the repeat the first run. Cases: random meshes in 5 and 71
+   packs (over the 64 the kernels once took), knife-edge lanes
+   (``knife_edge_rays``: NaN, +-0, denormal and infinite direction
+   components, infinite origins, origins on pack-root planes, caps 0 and
+   +inf) over both and over rock1800k, the hand-built case of the
+   top-node rule, rock1800k's primary and first shadow wavefronts
+   (tests/scenes/rock1800k.ply is written by scene/assets.py when
+   missing; 1,800,902 triangles in 28 packs), 0, 1, 31, 33 and 129 of its
+   shadow rays and the whole shadow wavefront with caps 0 and +inf.
 7. main path at dragon scale: ``render_scene`` of rock1800k; the counters
    must show multi-pack launches and no single-pack launch, and the frame
    must match tests/goldens/rock1800k.ppm at frac(|dLDR| > 1) < 1e-4.
@@ -47,11 +52,14 @@ non-zero and prints no result:
    instances) against its golden at mean < 0.2 and frac>2 < 0.01; the
    launch counts are printed.
 9. times: rock1800k load and frame (median of 5 after a warm-up), the
-   multi-pack kernels vs their plain versions on its two wavefronts, the
-   single-pack kernels on instances_rock's two batched queries and over
-   one BVH of rock1800k's triangles (a probe), instances_rock frames with
-   batched against per-group launches, and one profiled instances_rock
-   frame.
+   multi-pack kernels vs their plain versions on its two wavefronts (each
+   beside its bound and the per-thread multi-pack kernels' time), one
+   profiled rock1800k frame (kernels run, device ms, the traversal
+   kernels' ms, and the triangle-row rebuild's: its calls in a frame
+   times one call's CUDA-event ms), the single-pack kernels on
+   instances_rock's two batched queries and over one BVH of rock1800k's
+   triangles (a probe), instances_rock frames with batched against
+   per-group launches, and one profiled instances_rock frame.
 10. rng: ``utils/rng`` on the card gives the bits it gives on the CPU, and
    the literal ``jax.random`` values of tests/test_torch_rng.py.
 11. multi-sample main path: ``render_scene`` of rock100k at 800x800 and
@@ -106,7 +114,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SCENES = os.path.join(HERE, "tests", "scenes")
 GOLDENS = os.path.join(HERE, "tests", "goldens")
 OUT = os.path.join(HERE, "build", "chip_smoke")
-T_TOL = 2e-5
 FRAME_RES = (400, 800)      # rock100k frame sizes timed in phase 5
 FRAME_REPS = 5
 # the texture-free deterministic goldens: (scene, mean tol, frac>2 tol) of
@@ -134,6 +141,12 @@ REPLACES = {name: f"raytracer795_tpu/ops/pallas_bvh.py:{line}"
             for name, line in (("nearest", 335), ("anyhit", 404),
                                ("nearest_multi", 767),
                                ("anyhit_multi", 835))}
+# each wrapper's kernel as a trace names it: the multi-pack kernels are the
+# single-pack ones instantiated for a two-level table
+KERNEL_SYMBOLS = {"nearest": "nearest_kernel<false>",
+                  "anyhit": "anyhit_kernel<false>",
+                  "nearest_multi": "nearest_kernel<true>",
+                  "anyhit_multi": "anyhit_kernel<true>"}
 # The card's peak rates (H100 SXM datasheet, 700 W):
 # HBM bytes a second, and fp32 operations a second without FMA
 # contraction. The kernels build with -fmad=false, so every add, multiply
@@ -149,14 +162,14 @@ PEAK_FP32_OPS_S = 33.5e12
 NODE_OPS = 20
 TRI_OPS = 26
 # Times of the one-thread-a-ray kernels that the persistent single-pack
-# kernels replaced, and of the multi-pack kernels before their triangle
-# rows shrank to 48 bytes (PERF.md section 6, CUDA events, H100, 700 W), ms
+# kernels replaced, and of the per-thread multi-pack kernels that the
+# two-level walk replaced (PERF.md section 6, CUDA events, H100, 700 W), ms
 BEFORE_MS = {("nearest", "rock100k primary"): 0.934,
              ("anyhit", "rock100k first shadow"): 1.254,
              ("nearest", "rock100k_pt first diffuse bounce"): 1.536,
              ("anyhit", "rock100k_pt first NEE"): 1.471,
-             ("nearest_multi", "rock1800k primary"): 3.009,
-             ("anyhit_multi", "rock1800k first shadow"): 7.451}
+             ("nearest_multi", "rock1800k primary"): 2.142,
+             ("anyhit_multi", "rock1800k first shadow"): 5.961}
 RAGGED_N = (0, 1, 31, 33, 129)
 EDGE_RAYS = 131072          # rays of the moved-vertex and axis-aligned cases
 
@@ -261,6 +274,51 @@ def random_inputs(t, n, seed):
     return verts, tri_vidx, o, d, cap
 
 
+def knife_edge_rays(packs, n, seed):
+    """Rays on the knife edges of a packed group's top tree: (o, d, cap)
+    float32 numpy arrays. Every origin lies EXACTLY on a plane of some pack
+    root's box (its bmin or bmax on one axis, inside the box on the
+    others), and the lanes cycle through eight kinds: a +0, -0 or
+    denormal (+-1e-40) direction component on that axis, an infinite
+    direction component, an infinite origin component, a NaN, a zero
+    direction, and a plain direction. Caps cycle through 0, +inf and a
+    random one."""
+    rng = np.random.default_rng(seed)
+    def root(box):
+        return np.asarray(box[0].cpu() if torch.is_tensor(box) else box[0])
+    lo = np.stack([root(f.bmin) for f in packs])
+    hi = np.stack([root(f.bmax) for f in packs])
+    lane = np.arange(n)
+    p = rng.integers(0, len(packs), n)
+    ax = rng.integers(0, 3, n)
+    o = rng.uniform(lo[p], hi[p]).astype(np.float32)
+    o[lane, ax] = np.where(rng.random(n) < 0.5, hi[p, ax], lo[p, ax])
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    sign = rng.choice(np.float32([-1, 1]), n)
+    kind = lane % 8
+    k = kind == 0
+    d[k, ax[k]] = np.where(sign[k] > 0, np.float32(0.0), np.float32(-0.0))
+    k = kind == 1
+    d[k, ax[k]] = sign[k] * np.float32(1e-40)
+    k = kind == 2
+    d[k, (ax[k] + 1) % 3] = sign[k] * np.float32(np.inf)
+    k = kind == 3
+    o[k, (ax[k] + 1) % 3] = sign[k] * np.float32(np.inf)
+    k = (kind == 4) & (lane % 16 < 8)
+    o[k, ax[k]] = np.nan
+    k = (kind == 4) & (lane % 16 >= 8)
+    d[k, ax[k]] = np.nan
+    d[kind == 5] = 0.0
+    k = kind == 6
+    d[k, ax[k]] = 0.0
+    d[k, (ax[k] + 1) % 3] = 0.0
+    cap = rng.uniform(0.1, 5.0, n).astype(np.float32)
+    cap[lane % 3 == 0] = 0.0
+    cap[lane % 3 == 1] = np.inf
+    return o, d, cap
+
+
 def random_case(bt, t, n, seed, dev):
     from raytracer795_tpu_torch.ops import bvh
     from raytracer795_tpu_torch.scene.types import to_device
@@ -276,59 +334,163 @@ def random_case(bt, t, n, seed, dev):
 
 
 def compare_multi(bt, mt, o, d, cap, eps):
-    """Multi-pack kernels vs their plain per-pack walks on the card.
+    """The multi-pack kernels vs their plain per-pack walks on the card,
+    each kernel query run twice: every output (|t| key, t and prim id on
+    every lane, any-hit answer) must equal the plain walks' bit for bit,
+    and the repeat the first run.
 
-    Returns (max |dt| over hits, any-hit mismatches, hits, occluded, exact
-    |t| ties between packs where the prim ids differ)."""
+    Returns (max |dt|, any-hit mismatches, hits, occluded, tie lanes: hit
+    lanes whose prim id differs, 0 when the ids are equal)."""
     from raytracer795_tpu_torch.ops import intersect
-    from raytracer795_tpu_torch.utils.vec3 import Vec3
 
     packs = bt.decode_multi(mt)
-    key, t, idx = bt.tri_bvh_nearest_multi(mt, o, d, eps)
-    found = bt.tri_bvh_anyhit_multi(mt, o, d, cap, eps)
+    runs = [(*bt.tri_bvh_nearest_multi(mt, o, d, eps),
+             bt.tri_bvh_anyhit_multi(mt, o, d, cap, eps)) for _ in range(2)]
     pkey, pt, pidx = intersect._tri_bvh_candidates_multi(packs, o, d, eps)
     pfound = intersect._tri_bvh_anyhit_multi(packs, o, d, cap, eps)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "a repeated multi-pack kernel query gave other outputs")
+    key, t, idx, found = runs[0]
     hit = key < 1e38
+    ties = int((hit & (idx != pidx)).sum())
     check(torch.equal(hit, pkey < 1e38), "multi nearest hit masks differ")
     check(torch.equal(key, pkey), "multi nearest |t| keys differ")
-    tie = hit & (idx != pidx)
-    if tie.any():
-        # both ids must name accepted triangles at the lane's |t|
-        lanes = torch.nonzero(tie)[:, 0]
-        p0 = packs[0]
-
-        def at(tbl, j):
-            return Vec3(tbl.x[j], tbl.y[j], tbl.z[j])
-
-        o_l, d_l = at(o, lanes), at(d, lanes)
-        for ids in (idx[lanes].long(), pidx[lanes].long()):
-            ok, tj = intersect._tri_test(o_l, d_l, at(p0.a, ids),
-                                         at(p0.e1, ids), at(p0.e2, ids),
-                                         at(p0.ng, ids), eps)
-            check(bool(ok.all()) and torch.equal(tj.abs(), key[lanes]),
-                  "a differing prim id names no triangle at the lane's |t|")
-    same = hit & ~tie
-    err = float((t[same] - pt[same]).abs().max()) if same.any() else 0.0
-    check(err <= T_TOL, f"multi nearest t differs by {err}")
+    check(torch.equal(idx, pidx),
+          f"multi nearest prim ids differ on {ties} hit lanes")
+    err = float((t - pt).abs().max()) if t.numel() else 0.0
+    check(torch.equal(t, pt), f"multi nearest t differs by {err}")
     mismatches = int((found != pfound).sum())
     check(mismatches == 0, f"{mismatches} multi any-hit answers differ")
-    return err, mismatches, int(hit.sum()), int(found.sum()), int(tie.sum())
+    return err, mismatches, int(hit.sum()), int(found.sum()), ties
 
 
-def random_multi_case(bt, t, n, seed, pack_tris, dev):
+def multi_case(bt, t, n, seed, pack_tris, dev, knife=False):
+    """A random mesh cut into packs of ``pack_tris`` with the rays of
+    ``random_inputs`` or, with ``knife``, ``knife_edge_rays``: (packs, the
+    kernels' tables, o, d, cap, eps) on ``dev``."""
     from raytracer795_tpu_torch.ops import bvh
     from raytracer795_tpu_torch.scene.types import to_device
 
     verts, tri_vidx, o, d, cap = random_inputs(t, n, seed)
     perm, packs = bvh.build_multipack(verts, tri_vidx, pack_tris=pack_tris)
-    check(len(packs) >= 4, f"{len(packs)} packs")
+    if knife:
+        o, d, cap = knife_edge_rays(packs, n, seed + 1)
     mt = bt.build_multi_tables(to_device(packs, dev),
                                torch.from_numpy(verts).to(dev),
                                torch.from_numpy(tri_vidx[perm]).to(dev))
     eps = torch.tensor(1e-3, dtype=torch.float32, device=dev)
-    return len(packs), compare_multi(bt, mt, col3(o, dev), col3(d, dev),
-                                     torch.from_numpy(cap).to(dev), eps)
+    return (packs, mt, col3(o, dev), col3(d, dev),
+            torch.from_numpy(cap).to(dev), eps)
+
+
+def rule_inputs():
+    """The case of the top-node rule: two one-triangle packs, pack 0 at x
+    in [3, 4] and pack 1 at x in [0, 1], in the plane z = 0.5, and three
+    rays straight down: two from x = 1, pack 1's bmax.x, with dx = +0, and
+    a control ray with dx = 1e-3. Pack 1's root slab test meets (1 - 1) *
+    inf = NaN and counts as hit, and the two rays hit its triangle on its
+    edge x = 1 at t = 1.5, while the union box [0, 4] misses them; the
+    control ray misses both packs. (packs, vertices, tri_vidx, o, d, cap)
+    as float32/int32 numpy arrays."""
+    from raytracer795_tpu_torch.scene import types as T
+
+    def leaf(lo, hi, first):
+        return T.FlatBVH(bmin=np.array([lo], np.float32),
+                         bmax=np.array([hi], np.float32),
+                         first=np.array([first], np.int32),
+                         count=np.array([1], np.int32),
+                         miss=np.array([1], np.int32), max_leaf=1)
+    packs = (leaf([3, 0, 0.5], [4, 1, 0.5], 0),
+             leaf([0, 0, 0.5], [1, 1, 0.5], 1))
+    verts = np.array([[3, 0, 0.5], [4, 0, 0.5], [4, 1, 0.5],
+                      [0, 0, 0.5], [1, 0, 0.5], [1, 1, 0.5]], np.float32)
+    tv = np.arange(6, dtype=np.int32).reshape(2, 3)
+    o = np.array([[1, 0.2, 2], [1, 0.7, 2], [1, 0.2, 2]], np.float32)
+    d = np.array([[0, 0, -1], [0, 0, -1], [1e-3, 0, -1]], np.float32)
+    return packs, verts, tv, o, d, np.full(3, np.inf, np.float32)
+
+
+def rule_case(bt, dev):
+    """``rule_inputs`` as the kernels' tables and tensors on ``dev``."""
+    from raytracer795_tpu_torch.scene.types import to_device
+
+    packs, verts, tv, o, d, cap = rule_inputs()
+    mt = bt.build_multi_tables(to_device(packs, dev),
+                               torch.from_numpy(verts).to(dev),
+                               torch.from_numpy(tv).to(dev))
+    return (mt, col3(o, dev), col3(d, dev), torch.from_numpy(cap).to(dev),
+            torch.tensor(1e-3, dtype=torch.float32, device=dev))
+
+
+def multi_phase(bt, assets, load_scene, dev):
+    """Phase 6. Returns (rock1800k loaded, its tables, primary, shadow,
+    caps, load seconds, max |dt|, any-hit mismatch flag)."""
+    from raytracer795_tpu_torch.utils.vec3 import Vec3
+
+    errs, mism = [], []
+
+    def run(case, mt, o, d, cap, eps):
+        err, bad, hits, occ, ties = compare_multi(bt, mt, o, d, cap, eps)
+        errs.append(err)
+        mism.append(bad)
+        phase("multi_kernel_vs_plain", case=case, packs=mt.n_packs,
+              rays=o.x.shape[0], max_abs_t_err=err, anyhit_mismatches=bad,
+              hits=hits, occluded=occ, tie_lanes=ties)
+        return hits, occ
+
+    for case, t, n, seed, pack_tris, knife in (
+            ("random mesh 600 tris, 4096 rays", 600, 4096, 2, 128, False),
+            ("random mesh 9000 tris in packs of 128, 4096 rays", 9000, 4096,
+             3, 128, False),
+            ("knife-edge lanes, random mesh 600 tris", 600, 8192, 4, 128,
+             True),
+            ("knife-edge lanes, random mesh 9000 tris", 9000, 8192, 5, 128,
+             True)):
+        packs, *args = multi_case(bt, t, n, seed, pack_tris, dev, knife)
+        check(len(packs) > (64 if t == 9000 else 3), f"{len(packs)} packs")
+        hits, occ = run(case, *args)
+        check(hits > 0 and occ > 0, f"{case}: no hit")
+    hits, occ = run("top-node rule, two hand-built packs", *rule_case(bt, dev))
+    check(hits == 2 and occ == 2, "the rule case's two rays hit pack 1")
+
+    nu, nv = assets.ROCK1800K_GRID
+    assets.ensure_rock(os.path.join(SCENES, "rock1800k.ply"), nu, nv)
+    t0 = time.perf_counter()
+    big = load_scene(os.path.join(SCENES, "rock1800k.xml"), dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    (bgroup,) = big.scene.groups
+    check(bgroup.bvh is None and bgroup.pack_bvhs is not None,
+          "rock1800k is one multi-pack group")
+    bprim, bshadow, bcap = rock_wavefronts(big)
+    mt = bt.build_multi_tables(bgroup.pack_bvhs, big.scene.vertices,
+                               bgroup.tri_vidx)
+    beps = big.scene.int_eps
+    phase("load", scene="rock1800k", seconds=load_s, tris=bgroup.n_tris,
+          packs=mt.n_packs, nodes=mt.n_nodes)
+    for case, rays, rcap in (
+            ("rock1800k primary wavefront", bprim,
+             torch.full_like(bprim.o.x, 3.0e38)),
+            ("rock1800k first shadow wavefront", bshadow, bcap)):
+        run(case, mt, rays.o, rays.d, rcap, beps)
+    ko, kd, kc = knife_edge_rays(bgroup.pack_bvhs, 8192, 6)
+    run("knife-edge lanes, rock1800k", mt, col3(ko, dev), col3(kd, dev),
+        torch.from_numpy(kc).to(dev), beps)
+    walking = torch.nonzero((bshadow.d.x != 0) | (bshadow.d.y != 0)
+                            | (bshadow.d.z != 0))[:, 0]
+    for n in RAGGED_N:
+        lanes = walking[:n]
+        caps = torch.where(torch.arange(n, device=dev) % 2 == 0, 0.0,
+                           float("inf"))
+        run(f"rock1800k first shadow wavefront, {n} live rays, caps 0 and "
+            "+inf", mt, Vec3(*(c[lanes] for c in bshadow.o)),
+            Vec3(*(c[lanes] for c in bshadow.d)), caps, beps)
+    lanes = torch.arange(bcap.shape[0], device=dev)
+    run("rock1800k first shadow wavefront, caps 0 and +inf", mt, bshadow.o,
+        bshadow.d, torch.where(lanes % 2 == 0, 0.0, float("inf")), beps)
+    return (big, mt, bprim, bshadow, bcap, load_s, max(errs),
+            float(max(mism) > 0))
 
 
 def kernel_bound(bt, tables, o, d, eps, cap=None):
@@ -445,8 +607,8 @@ def edge_phase(bt, render, loaded, tb, shadow, cap, eps, dev):
     """Phase 3, second part: the single-pack kernels vs their plain walks,
     bit for bit and twice each, on the moved-vertex and axis-aligned cases
     at 131,072 rays, rock100k's mirror-bounce wavefront (mostly dead
-    lanes), ragged ray counts and caps of 0 and +inf. Returns the max |dt|
-    and any-hit mismatches."""
+    lanes), ragged ray counts and caps of 0 and +inf. Returns the max |dt|,
+    any-hit mismatches and the mirror-bounce query's (tables, o, d, eps)."""
     from raytracer795_tpu_torch.utils.vec3 import Vec3
 
     errs, mism = [], []
@@ -483,7 +645,7 @@ def edge_phase(bt, render, loaded, tb, shadow, cap, eps, dev):
     lanes = torch.arange(cap.shape[0], device=dev)
     run("rock100k first shadow wavefront, caps 0 and +inf", tb, shadow.o,
         shadow.d, torch.where(lanes % 2 == 0, 0.0, float("inf")), eps)
-    return max(errs), max(mism)
+    return max(errs), max(mism), (btb, bo, bd, beps)
 
 
 def rock_wavefronts(loaded):
@@ -562,8 +724,8 @@ def profile_launches(fn):
 def bvh_kernel_ms(by_name):
     """Device ms of each traversal kernel in a trace, by its name there."""
     out = {}
-    for name in REPLACES:
-        pat = re.compile(r"(?<![A-Za-z_])%s_kernel(?![a-z_])" % name)
+    for name, symbol in KERNEL_SYMBOLS.items():
+        pat = re.compile(r"(?<![A-Za-z_])%s" % re.escape(symbol))
         out[name] = sum(ms for key, ms in by_name.items() if pat.search(key))
     return out
 
@@ -934,7 +1096,8 @@ def main() -> int:
         phase("kernel_vs_plain", case=case, rays=rays.o.x.shape[0],
               max_abs_t_err=err, anyhit_mismatches=bad, hits=hits,
               occluded=occ)
-    err, bad = edge_phase(bt, render, loaded, tb, shadow, cap, eps, dev)
+    err, bad, mirror = edge_phase(bt, render, loaded, tb, shadow, cap, eps,
+                                  dev)
     errs.append(err)
     mism.append(bad)
 
@@ -976,47 +1139,21 @@ def main() -> int:
             eps, cap, cuda_ms(lambda: intersect._tri_bvh_anyhit(
                 dec, shadow.o, shadow.d, cap, eps), 1), card),
     }
+    mtb, mo, md, meps = mirror
+    mdec = bt.decode(mtb)
+    kernel_time(bt, "nearest", "rock100k mirror bounce", mtb, mo, md, meps,
+                None, cuda_ms(lambda: intersect._tri_bvh_candidates(
+                    mdec, mo, md, meps), 1), card)
     # any-hit answers are booleans, so their |kernel - plain| is 0 or 1
     err_by = {"nearest": max(errs), "anyhit": float(max(mism) > 0)}
 
     # ---- 6. multi-pack kernels vs plain on the card ----
-    errs, mism = [], []
-    n_packs, (err, bad, hits, occ, ties) = random_multi_case(
-        bt, 600, 4096, 2, 128, dev)
-    errs.append(err)
-    mism.append(bad)
-    phase("multi_kernel_vs_plain", case="random mesh 600 tris, 4096 rays",
-          packs=n_packs, max_abs_t_err=err, anyhit_mismatches=bad,
-          hits=hits, occluded=occ, tie_lanes=ties)
-    nu, nv = assets.ROCK1800K_GRID
-    assets.ensure_rock(os.path.join(SCENES, "rock1800k.ply"), nu, nv)
-    big_xml = os.path.join(SCENES, "rock1800k.xml")
-    t0 = time.perf_counter()
-    big = load_scene(big_xml, dev)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    big, mt, bprim, bshadow, bcap, load_s, err, bad = multi_phase(
+        bt, assets, load_scene, dev)
     (bgroup,) = big.scene.groups
-    check(bgroup.bvh is None and bgroup.pack_bvhs is not None,
-          "rock1800k is one multi-pack group")
-    bprim, bshadow, bcap = rock_wavefronts(big)
-    mt = bt.build_multi_tables(bgroup.pack_bvhs, big.scene.vertices,
-                               bgroup.tri_vidx)
     beps = big.scene.int_eps
-    phase("load", scene="rock1800k", seconds=load_s, tris=bgroup.n_tris,
-          packs=mt.n_packs, nodes=mt.nodes.shape[0])
-    for case, rays, rcap in (
-            ("rock1800k primary wavefront", bprim,
-             torch.full_like(bprim.o.x, 3.0e38)),
-            ("rock1800k first shadow wavefront", bshadow, bcap)):
-        err, bad, hits, occ, ties = compare_multi(bt, mt, rays.o, rays.d,
-                                                  rcap, beps)
-        errs.append(err)
-        mism.append(bad)
-        phase("multi_kernel_vs_plain", case=case, rays=rays.o.x.shape[0],
-              max_abs_t_err=err, anyhit_mismatches=bad, hits=hits,
-              occluded=occ, tie_lanes=ties)
-    err_by["nearest_multi"] = max(errs)
-    err_by["anyhit_multi"] = float(max(mism) > 0)
+    err_by["nearest_multi"] = err
+    err_by["anyhit_multi"] = bad
 
     # ---- 7. main path at dragon scale ----
     big_s, big_launches, img = main_path(render, bt, big, "rock1800k")
@@ -1094,6 +1231,18 @@ def main() -> int:
         o, d = intersect._concat_local_rays(inst.scene, gis, rays)
         kernel_time(bt, name, wave, itb, o, d, inst.scene.int_eps, rcap,
                     None, card)
+
+    # one profiled rock1800k frame; the triangle-row rebuild of every
+    # query (build_multi_tables) timed alone and counted over the frame
+    with counting(bt, ("_tri_rows",)) as rebuilds:
+        render.render_camera(big, 0, ldr=True)
+    rebuild_ms = cuda_ms(lambda: bt._tri_rows(big.scene.vertices,
+                                              bgroup.tri_vidx), 5)
+    phase("profile", scene="rock1800k", res=400, spp=1,
+          **profile_frame(render, big, statistics.median(secs), 0.0),
+          tri_row_rebuilds=rebuilds["_tri_rows"],
+          tri_row_rebuild_ms_each=rebuild_ms,
+          tri_row_rebuild_ms=rebuilds["_tri_rows"] * rebuild_ms, card=card)
 
     # probe: the single-pack kernels over ONE BVH of the same triangles
     verts_np = big.scene.vertices.cpu().numpy()

@@ -88,12 +88,11 @@
 // Tables (built by ops/bvh_traverse.py from the FlatBVHs and the live
 // vertices):
 //   nodes [2M] float4: (bmin.xyz, link as int bits), (bmax.xyz, count as
-//         int bits); count == 0 marks an inner node. In multi tables the
-//         links of inner nodes are pack-local and leaf `first`s global.
+//         int bits); count == 0 marks an inner node, count == -1 an inner
+//         node of a multi table's top tree. Links and leaf `first`s are
+//         global.
 //   tris  [3T] float4 in BVH (leaf-contiguous) order: (a.xyz, e1.x),
 //         (e1.yz, e2.xy), (e2.z, ng.xyz).
-//   offsets [K + 1] int (multi tables only): pack p owns nodes
-//         [offsets[p], offsets[p + 1]), its root first.
 //
 // Arithmetic follows the JAX package operation by operation: correctly
 // rounded division (build without --use_fast_math), no FMA contraction
@@ -103,25 +102,40 @@
 // does. No kernel adds the behind-the-origin box culls of the TPU
 // kernels: a walk here visits exactly the nodes of the per-lane oracle.
 //
-// The multi-pack kernels keep the one-thread-a-ray walk of their first
-// port and read the tables above. On the TPU the pack axis is a sequential
-// grid dimension and a separate TLAS pass gives each 16x128-ray block a
-// culled pack list sorted front to back by root entry, so that the
-// per-lane `entry > best` prune kills occluded packs at their root. Here
-// one thread does all of it for its own ray: it slab-tests the K pack
-// roots with the same math, keeps the packs whose root it hits in a list
-// sorted by root entry (insertion sort of (entry bits, pack) pairs; NaN and
-// infinite entries last, as the TLAS sanitizes them), and walks each
-// listed pack's tree from its root, carrying one best (key, t, idx) from
-// pack to pack. The order is a heuristic only: every listed pack is walked
-// with the same prune as the per-pack oracle walk, so no mask, key or t
-// depends on it; where two packs hold hits of exactly equal |t|, the pack
-// reached first keeps its prim id (the per-pack oracle merge keeps the
-// lower pack). The any-hit kernel drops packs whose root entry exceeds its
-// cap and stops at its first hit. The list lives in local memory
-// (kMaxPacks x 8 bytes a thread, L1-cached). A 1.8M-triangle group's
-// triangle table is ~86 MB, over the L2, so leaf loads also reach HBM;
-// coherent warps share them.
+// The multi-pack kernels (rt795_bvh_nearest_multi, rt795_bvh_anyhit_multi)
+// are the same two kernels instantiated with kTop: they walk one two-level
+// skip-link table (ops/bvh_traverse.py build_multi_tables). Its top tree
+// has the K packs as leaves in pack order, each inner top node halving its
+// range of packs, with a box that is the exact min/max of its packs' root
+// boxes and count -1; each top leaf is its pack's root, followed by the
+// pack's nodes, all links global. On the TPU the pack axis is a sequential
+// grid dimension fed by a TLAS pass (_block_pack_lists) that gives each ray
+// block a sorted pack list; here the top tree replaces both, and the walk,
+// lanes and prefetch are the single-pack kernels'. Packs are reached in
+// index order, and the nearest kernel prunes each pack with that pack's own
+// best |t| (kPacks), restarting at each pack root, while the group's best
+// takes a hit only where it is below that best too. So each pack's node
+// sequence is exactly its per-pack walk's and the group's answer is the
+// strict-less merge of theirs in pack order, the lower pack's prim at an
+// exact |t| tie included. (A best carried from pack to pack would prune
+// more, but not exactly: a hit accepted within int_eps of a triangle's
+// edge can lie outside its leaf box, before the box's entry, so a pack
+// pruned at an entry above the carried best may hold a nearer hit. On a
+// height field of shared edges in 48 packs that changes 3 of 4,096 lanes
+// at int_eps 3e-2, tests/test_torch_traverse.py.) Any-hit answers are an OR, so order and
+// prune do not matter there. One rule keeps the top tree exact: a top node
+// may cull only a ray whose o, d and 1/d are all finite (Ray::boxed). For
+// such a ray the slab test's subtractions, multiplications and max/min are
+// monotone and NaN-free, so a union box's entry is at most, and its exit
+// at least, those of every pack root below it: a top node that misses, or
+// is pruned (entry > kBig, the limit a pack root meets; entry > cap for
+// any-hit), implies that every root below it would be. A zero or denormal
+// component of d (1/d infinite) or an infinite o or d can put NaN into a
+// root's slab test, which then counts as hit while the wider union box
+// misses; such a ray passes every top node and meets each pack root's own
+// test. There is no cap on K.
+// A 1.8M-triangle group's triangle table is ~86 MB, over the L2, so leaf
+// loads also reach HBM; coherent warps share them.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -131,8 +145,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr float kBig = 3.0e38f;
-// most packs a multi-pack kernel takes (ops/bvh_traverse.py MAX_PACKS)
-constexpr int kMaxPacks = 64;
 // a persistent warp takes new rays for its idle lanes once at least this
 // many of its 32 lanes are idle
 constexpr int kRefillIdle = 8;
@@ -141,6 +153,8 @@ constexpr int kMaxDevices = 64;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+  // o, d and 1/d all finite: a top node of a multi table may cull the ray
+  bool boxed;
 };
 
 // one node: lo = (bmin.xyz, link bits), hi = (bmax.xyz, count bits)
@@ -154,6 +168,10 @@ struct Tri {
 };
 
 __device__ __forceinline__ bool is_nan(float x) { return x != x; }
+
+__device__ __forceinline__ bool is_finite(float x) {
+  return fabsf(x) < CUDART_INF_F;  // false for NaN
+}
 
 // jnp.maximum / jnp.minimum: NaN if either operand is NaN
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -184,6 +202,9 @@ __device__ __forceinline__ Ray load_ray(const float* ox, const float* oy,
   r.ix = 1.0f / r.dx;  // +/-inf where d == +/-0
   r.iy = 1.0f / r.dy;
   r.iz = 1.0f / r.dz;
+  r.boxed = is_finite(r.ox) && is_finite(r.oy) && is_finite(r.oz) &&
+            is_finite(r.dx) && is_finite(r.dy) && is_finite(r.dz) &&
+            is_finite(r.ix) && is_finite(r.iy) && is_finite(r.iz);
   return r;
 }
 
@@ -259,19 +280,27 @@ __device__ __forceinline__ bool tri_test(const Ray& r, const Tri& tr,
 
 // The triangles [first, first + count) of a leaf, in order, with the
 // strict-less |t| update of _tri_bvh_candidates. The next row is loaded
-// before the current one is tested.
+// before the current one is tested. `limit` is the walk's best |t|, which
+// prunes; with kPacks it is the pack's own, and the group's best (key, t,
+// idx) takes a hit only where it is below that best too: the strict-less
+// merge of the per-pack results, made hit by hit.
+template <bool kPacks>
 __device__ __forceinline__ void nearest_leaf(
     const Ray& r, const float4* __restrict__ tris, float eps, int first,
-    int count, float& best_key, float& best_t, int& best_idx) {
+    int count, float& limit, float& best_key, float& best_t, int& best_idx) {
   const int last = first + count - 1;
   Tri cur = load_tri(tris, first);
   for (int k = first; k <= last; ++k) {
     const Tri nxt = load_tri(tris, min(k + 1, last));
     float t;
-    if (tri_test(r, cur, eps, &t) & (fabsf(t) < best_key)) {
-      best_key = fabsf(t);
-      best_t = t;
-      best_idx = k;
+    const bool ok = tri_test(r, cur, eps, &t);  // sets t before it is read
+    if (ok & (fabsf(t) < limit)) {
+      limit = fabsf(t);
+      if (!kPacks || fabsf(t) < best_key) {
+        best_key = fabsf(t);
+        best_t = t;
+        best_idx = k;
+      }
     }
     cur = nxt;
   }
@@ -287,7 +316,8 @@ __device__ __forceinline__ bool anyhit_leaf(const Ray& r,
   for (int k = first; k <= last; ++k) {
     const Tri nxt = load_tri(tris, min(k + 1, last));
     float t;
-    if (tri_test(r, cur, eps, &t) & (t > 0.0f) & (t < cap)) {
+    const bool ok = tri_test(r, cur, eps, &t);
+    if (ok & (t > 0.0f) & (t < cap)) {
       return true;
     }
     cur = nxt;
@@ -295,67 +325,35 @@ __device__ __forceinline__ bool anyhit_leaf(const Ray& r,
   return false;
 }
 
-// _tri_bvh_candidates per thread over the tree of nodes [base, end): the
-// nearest triangle by |t|, strict-less updates in leaf order, nodes pruned
-// when their entry exceeds the best. Inner links are relative to base.
-__device__ __forceinline__ void nearest_walk(
-    const Ray& r, const float4* __restrict__ nodes,
-    const float4* __restrict__ tris, float eps, int base, int end,
-    float& best_key, float& best_t, int& best_idx) {
-  int node = base;
-  while (node < end) {
-    const Node n = load_node(nodes, node);
-    float entry;
-    const bool hit = slab(r, n.lo, n.hi, &entry) && !(entry > best_key);
-    const int count = node_count(n);
-    if (hit && count > 0) {
-      nearest_leaf(r, tris, eps, node_link(n), count, best_key, best_t,
-                   best_idx);
-    }
-    node = (hit || count > 0) ? node + 1 : base + node_link(n);
-  }
-}
-
-// _tri_bvh_anyhit per thread over the tree of nodes [base, end): true at
-// the first triangle with 0 < t < cap; nodes pruned when their entry
-// exceeds the cap.
-__device__ __forceinline__ bool anyhit_walk(const Ray& r,
-                                            const float4* __restrict__ nodes,
-                                            const float4* __restrict__ tris,
-                                            float eps, float cap, int base,
-                                            int end) {
-  int node = base;
-  while (node < end) {
-    const Node n = load_node(nodes, node);
-    float entry;
-    const bool hit = slab(r, n.lo, n.hi, &entry) && !(entry > cap);
-    const int count = node_count(n);
-    if (hit && count > 0 &&
-        anyhit_leaf(r, tris, eps, cap, node_link(n), count)) {
-      return true;
-    }
-    node = (hit || count > 0) ? node + 1 : base + node_link(n);
-  }
-  return false;
-}
-
 // Advances a lane from `node` through inner nodes to its next leaf that
 // passes (box hit, entry not above `limit`), or to the end of the tree.
 // Returns the leaf's triangle count (0 at the end) and its first triangle
-// in *first; `node` ends just past the leaf. (Loading both nodes that may
-// come next before the slab test ends measured slower: the loads it adds
-// cost more than the latency it hides, tools/torch_traverse_steps.py.)
+// in *first; `node` ends just past the leaf. On a multi table (kTop) a top
+// node (count < 0) passes a ray that is not `boxed` whatever its slab test
+// says. With kPacks, `limit` is the current pack's best |t|: where the
+// walk leaves the pack (node >= pack_end: a top node or the next pack's
+// root) it starts again at kBig, and a pack root sets pack_end to its skip
+// link, the end of its pack. (Loading both nodes that may come next before
+// the slab test ends measured slower: the loads it adds cost more than the
+// latency it hides, tools/torch_traverse_steps.py.)
+template <bool kTop, bool kPacks>
 __device__ __forceinline__ int next_leaf(const Ray& r,
                                          const float4* __restrict__ nodes,
-                                         int n_nodes, float limit, int& node,
-                                         int* first) {
+                                         int n_nodes, float& limit, int& node,
+                                         int& pack_end, int* first) {
   while (node < n_nodes) {
     const Node n = load_node(nodes, node);
+    if (kPacks && node >= pack_end) {
+      limit = kBig;
+      const int c = node_count(n);
+      if (c >= 0) pack_end = c > 0 ? node + 1 : node_link(n);
+    }
     float entry;
     const bool hit = slab(r, n.lo, n.hi, &entry) && !(entry > limit);
     const int count = node_count(n);
     const int link = node_link(n);
-    node = (hit || count > 0) ? node + 1 : link;
+    const bool enter = hit || (kTop && count < 0 && !r.boxed);
+    node = (enter || count > 0) ? node + 1 : link;
     if (hit && count > 0) {
       *first = link;
       return count;
@@ -379,6 +377,8 @@ __device__ __forceinline__ int lane_rank(unsigned mask) {
   return __popc(mask & ((1u << (threadIdx.x & 31)) - 1u));
 }
 
+// kTop: the multi-pack kernel, over a two-level table.
+template <bool kTop>
 __global__ void __launch_bounds__(kThreads)
     nearest_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                    const float* __restrict__ oz, const float* __restrict__ dx,
@@ -393,6 +393,8 @@ __global__ void __launch_bounds__(kThreads)
   Ray r{};
   int ray = -1;  // the ray this lane walks; -1 while the lane is idle
   int node = 0;
+  int pack_end = 0;   // kTop: the end of the pack being walked
+  float limit = kBig;  // kTop: that pack's best |t|; else best_key is used
   float best_key = kBig;
   float best_t = 0.0f;
   int best_idx = 0;
@@ -412,6 +414,7 @@ __global__ void __launch_bounds__(kThreads)
         } else {
           ray = i;
           node = 0;
+          pack_end = 0;
           best_key = kBig;
           best_t = 0.0f;
           best_idx = 0;
@@ -423,11 +426,14 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     }
     int first = 0;
-    const int count =
-        ray >= 0 ? next_leaf(r, nodes, n_nodes, best_key, node, &first) : 0;
+    float& lim = kTop ? limit : best_key;
+    const int count = ray >= 0 ? next_leaf<kTop, kTop>(r, nodes, n_nodes, lim,
+                                                       node, pack_end, &first)
+                               : 0;
     __syncwarp();
     if (count > 0) {
-      nearest_leaf(r, tris, eps, first, count, best_key, best_t, best_idx);
+      nearest_leaf<kTop>(r, tris, eps, first, count, lim, best_key, best_t,
+                         best_idx);
     }
     if (ray >= 0 && node >= n_nodes) {
       key_out[ray] = best_key;
@@ -438,6 +444,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kTop>
 __global__ void __launch_bounds__(kThreads)
     anyhit_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                   const float* __restrict__ oz, const float* __restrict__ dx,
@@ -476,8 +483,11 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     }
     int first = 0;
-    const int count =
-        ray >= 0 ? next_leaf(r, nodes, n_nodes, cap, node, &first) : 0;
+    int pack_end = 0;  // unused: any-hit prunes with the ray's cap alone
+    const int count = ray >= 0 ? next_leaf<kTop, false>(r, nodes, n_nodes,
+                                                        cap, node, pack_end,
+                                                        &first)
+                               : 0;
     __syncwarp();
     if (count > 0 && anyhit_leaf(r, tris, eps, cap, first, count)) {
       found_out[ray] = 1;
@@ -489,102 +499,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The packs whose root box the ray hits (and, for any-hit, whose root
-// entry does not exceed cap), nearest root entry first: each entry of
-// `order` is (key bits << 32 | pack) with key = entry for a finite entry
-// > 0, 0 for a finite entry <= 0, kBig otherwise; ties go to the lower
-// pack. Returns the list's length.
-__device__ __forceinline__ int pack_order(const Ray& r,
-                                          const float4* __restrict__ nodes,
-                                          const int* __restrict__ offsets,
-                                          int n_packs, float cap,
-                                          unsigned long long* order) {
-  int n = 0;
-  for (int p = 0; p < n_packs; ++p) {
-    const Node root = load_node(nodes, offsets[p]);
-    float entry;
-    if (!slab(r, root.lo, root.hi, &entry) || entry > cap) {
-      continue;
-    }
-    // fabsf(NaN) < inf is false: NaN and +/-inf entries sort last
-    const float key =
-        fabsf(entry) < CUDART_INF_F ? (entry > 0.0f ? entry : 0.0f) : kBig;
-    const unsigned long long e =
-        (static_cast<unsigned long long>(__float_as_uint(key)) << 32) |
-        static_cast<unsigned int>(p);
-    int j = n++;
-    while (j > 0 && order[j - 1] > e) {
-      order[j] = order[j - 1];
-      --j;
-    }
-    order[j] = e;
-  }
-  return n;
-}
-
-__device__ __forceinline__ int listed_pack(unsigned long long e) {
-  return static_cast<int>(e & 0xffffffffu);
-}
-
-__global__ void __launch_bounds__(kThreads) nearest_multi_kernel(
-    const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ oz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float4* __restrict__ nodes, const int* __restrict__ offsets,
-    const float4* __restrict__ tris, const float* __restrict__ eps_ptr,
-    int n_packs, int n_rays, float* __restrict__ key_out,
-    float* __restrict__ t_out, int* __restrict__ idx_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const float eps = *eps_ptr;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  float best_key = kBig;
-  float best_t = 0.0f;
-  int best_idx = 0;
-  if (!dead_ray(r)) {
-    unsigned long long order[kMaxPacks];
-    const int n = pack_order(r, nodes, offsets, n_packs, CUDART_INF_F, order);
-    for (int j = 0; j < n; ++j) {
-      const int p = listed_pack(order[j]);
-      nearest_walk(r, nodes, tris, eps, offsets[p], offsets[p + 1], best_key,
-                   best_t, best_idx);
-    }
-  }
-  key_out[i] = best_key;
-  t_out[i] = best_t;
-  idx_out[i] = best_idx;
-}
-
-__global__ void __launch_bounds__(kThreads) anyhit_multi_kernel(
-    const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ oz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ t_cap, const float4* __restrict__ nodes,
-    const int* __restrict__ offsets, const float4* __restrict__ tris,
-    const float* __restrict__ eps_ptr, int n_packs, int n_rays,
-    unsigned char* __restrict__ found_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const float eps = *eps_ptr;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const float cap = t_cap[i];
-  bool found = false;
-  if (!dead_ray(r)) {
-    unsigned long long order[kMaxPacks];
-    const int n = pack_order(r, nodes, offsets, n_packs, cap, order);
-    for (int j = 0; j < n && !found; ++j) {
-      const int p = listed_pack(order[j]);
-      found = anyhit_walk(r, nodes, tris, eps, cap, offsets[p],
-                          offsets[p + 1]);
-    }
-  }
-  found_out[i] = found ? 1 : 0;
-}
-
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-int g_nearest_resident[kMaxDevices];
-int g_anyhit_resident[kMaxDevices];
+// resident blocks of each kernel (nearest, anyhit, nearest_multi,
+// anyhit_multi) on each device, once known
+int g_resident[4][kMaxDevices];
 
 // Blocks of a persistent launch: the blocks the current device holds at
 // once (SMs x resident blocks of `kernel`, remembered per device in
@@ -607,12 +526,47 @@ int persistent_blocks(Kernel kernel, int* cache, int n_rays) {
   return needed < resident ? needed : resident;
 }
 
+template <bool kTop>
+int launch_nearest(const float* ox, const float* oy, const float* oz,
+                   const float* dx, const float* dy, const float* dz,
+                   const void* nodes, const void* tris, const float* int_eps,
+                   int n_nodes, int n_rays, int* next_ray, float* key,
+                   float* t, int* idx, void* stream) {
+  if (n_rays <= 0) return 0;
+  const int blocks = persistent_blocks(nearest_kernel<kTop>,
+                                       g_resident[kTop ? 2 : 0], n_rays);
+  nearest_kernel<kTop>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          ox, oy, oz, dx, dy, dz, static_cast<const float4*>(nodes),
+          static_cast<const float4*>(tris), int_eps, n_nodes, n_rays,
+          next_ray, key, t, idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTop>
+int launch_anyhit(const float* ox, const float* oy, const float* oz,
+                  const float* dx, const float* dy, const float* dz,
+                  const float* t_cap, const void* nodes, const void* tris,
+                  const float* int_eps, int n_nodes, int n_rays,
+                  int* next_ray, unsigned char* found, void* stream) {
+  if (n_rays <= 0) return 0;
+  const int blocks = persistent_blocks(anyhit_kernel<kTop>,
+                                       g_resident[kTop ? 3 : 1], n_rays);
+  anyhit_kernel<kTop>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          ox, oy, oz, dx, dy, dz, t_cap, static_cast<const float4*>(nodes),
+          static_cast<const float4*>(tris), int_eps, n_nodes, n_rays,
+          next_ray, found);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry points for ctypes. Each launches on the given stream, does not
 // synchronize, and returns cudaGetLastError() (0 when the launch was
-// accepted). `next_ray` of the single-pack kernels is one int the wrapper
-// zeroes: the persistent warps' ray counter.
+// accepted). `n_nodes` counts the whole table (a multi table's top nodes
+// and every pack's nodes); `next_ray` is one int the wrapper zeroes: the
+// persistent warps' ray counter.
 extern "C" int rt795_bvh_nearest(const float* ox, const float* oy,
                                  const float* oz, const float* dx,
                                  const float* dy, const float* dz,
@@ -620,14 +574,9 @@ extern "C" int rt795_bvh_nearest(const float* ox, const float* oy,
                                  const float* int_eps, int n_nodes,
                                  int n_rays, int* next_ray, float* key,
                                  float* t, int* idx, void* stream) {
-  if (n_rays <= 0) return 0;
-  const int blocks =
-      persistent_blocks(nearest_kernel, g_nearest_resident, n_rays);
-  nearest_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, static_cast<const float4*>(nodes),
-      static_cast<const float4*>(tris), int_eps, n_nodes, n_rays, next_ray,
-      key, t, idx);
-  return static_cast<int>(cudaGetLastError());
+  return launch_nearest<false>(ox, oy, oz, dx, dy, dz, nodes, tris, int_eps,
+                               n_nodes, n_rays, next_ray, key, t, idx,
+                               stream);
 }
 
 extern "C" int rt795_bvh_anyhit(const float* ox, const float* oy,
@@ -637,46 +586,30 @@ extern "C" int rt795_bvh_anyhit(const float* ox, const float* oy,
                                 const void* tris, const float* int_eps,
                                 int n_nodes, int n_rays, int* next_ray,
                                 unsigned char* found, void* stream) {
-  if (n_rays <= 0) return 0;
-  const int blocks =
-      persistent_blocks(anyhit_kernel, g_anyhit_resident, n_rays);
-  anyhit_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, t_cap, static_cast<const float4*>(nodes),
-      static_cast<const float4*>(tris), int_eps, n_nodes, n_rays, next_ray,
-      found);
-  return static_cast<int>(cudaGetLastError());
+  return launch_anyhit<false>(ox, oy, oz, dx, dy, dz, t_cap, nodes, tris,
+                              int_eps, n_nodes, n_rays, next_ray, found,
+                              stream);
 }
 
-extern "C" int rt795_bvh_nearest_multi(
-    const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, const void* nodes, const int* offsets,
-    const void* tris, const float* int_eps, int n_packs, int n_rays,
-    float* key, float* t, int* idx, void* stream) {
-  if (n_packs < 1 || n_packs > kMaxPacks) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rays <= 0) return 0;
-  nearest_multi_kernel<<<blocks_for(n_rays), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, static_cast<const float4*>(nodes), offsets,
-      static_cast<const float4*>(tris), int_eps, n_packs, n_rays, key, t,
-      idx);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int rt795_bvh_nearest_multi(const float* ox, const float* oy,
+                                       const float* oz, const float* dx,
+                                       const float* dy, const float* dz,
+                                       const void* nodes, const void* tris,
+                                       const float* int_eps, int n_nodes,
+                                       int n_rays, int* next_ray, float* key,
+                                       float* t, int* idx, void* stream) {
+  return launch_nearest<true>(ox, oy, oz, dx, dy, dz, nodes, tris, int_eps,
+                              n_nodes, n_rays, next_ray, key, t, idx, stream);
 }
 
-extern "C" int rt795_bvh_anyhit_multi(
-    const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, const float* t_cap, const void* nodes,
-    const int* offsets, const void* tris, const float* int_eps, int n_packs,
-    int n_rays, unsigned char* found, void* stream) {
-  if (n_packs < 1 || n_packs > kMaxPacks) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rays <= 0) return 0;
-  anyhit_multi_kernel<<<blocks_for(n_rays), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, t_cap, static_cast<const float4*>(nodes),
-      offsets, static_cast<const float4*>(tris), int_eps, n_packs, n_rays,
-      found);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int rt795_bvh_anyhit_multi(const float* ox, const float* oy,
+                                      const float* oz, const float* dx,
+                                      const float* dy, const float* dz,
+                                      const float* t_cap, const void* nodes,
+                                      const void* tris, const float* int_eps,
+                                      int n_nodes, int n_rays, int* next_ray,
+                                      unsigned char* found, void* stream) {
+  return launch_anyhit<true>(ox, oy, oz, dx, dy, dz, t_cap, nodes, tris,
+                             int_eps, n_nodes, n_rays, next_ray, found,
+                             stream);
 }

@@ -16,7 +16,8 @@ ops/intersect.py for CPU tensors, and for nothing else: a CUDA tensor
 launches the kernel or raises. The plain walks read the same tables,
 decoded (``decode``, ``decode_multi``), and are what the kernels are held
 to. ``walk_work`` is the plain walk with counters: the work behind the
-kernels' bounds.
+kernels' bounds. ``walk_two_level`` is the multi-pack kernels' own walk
+of their two-level table, on the host.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` into
 a shared library with a plain C interface under ``build/cuda/`` at the
@@ -54,14 +55,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches per kernel, counted where each wrapper launches its kernel
 LAUNCHES = {"nearest": 0, "anyhit": 0, "nearest_multi": 0,
             "anyhit_multi": 0}
-# packs a multi-pack kernel takes: its per-ray pack list is this long
-# (csrc/bvh_traverse.cu kMaxPacks); rock1800k has 28
-MAX_PACKS = 64
 # pointer arguments of each C entry point before and after its two ints:
-# rays (6), [t_cap], nodes, [offsets], tris, int_eps; then node or pack
-# count, ray count; then [ray counter], outputs, stream
-C_ARGS = {"nearest": (9, 5), "anyhit": (10, 3), "nearest_multi": (10, 4),
-          "anyhit_multi": (11, 2)}
+# rays (6), [t_cap], nodes, tris, int_eps; then node count, ray count; then
+# the ray counter, outputs, stream
+C_ARGS = {"nearest": (9, 5), "anyhit": (10, 3), "nearest_multi": (9, 5),
+          "anyhit_multi": (10, 3)}
 
 _log = logging.getLogger(__name__)
 _LOCK = threading.Lock()
@@ -153,8 +151,9 @@ def build_tables(bvh: T.FlatBVH, vertices: torch.Tensor,
                           max_leaf=bvh.max_leaf)
 
 
-def _decode_nodes(nodes: torch.Tensor):
-    """bmin, bmax, first, count and the tree-local miss of a node table."""
+def _decode_nodes(nodes: torch.Tensor, base: int = 0):
+    """bmin, bmax, first, count and miss of a node table whose links are
+    ``base`` plus the table's own indices."""
     ni = nodes.view(torch.int32)
     link, count = ni[:, 3], ni[:, 7]
     leaf = count > 0
@@ -162,7 +161,8 @@ def _decode_nodes(nodes: torch.Tensor):
                          device=nodes.device)
     return (Vec3(nodes[:, 0], nodes[:, 1], nodes[:, 2]),
             Vec3(nodes[:, 4], nodes[:, 5], nodes[:, 6]),
-            torch.where(leaf, link, 0), count, torch.where(leaf, after, link))
+            torch.where(leaf, link, 0), count,
+            torch.where(leaf, after, link - base))
 
 
 def _decode_tris(tr: torch.Tensor):
@@ -170,23 +170,34 @@ def _decode_tris(tr: torch.Tensor):
                  for k in (0, 3, 6, 9))
 
 
-def decode(tb: TraverseTables) -> Decoded:
-    bmin, bmax, first, count, miss = _decode_nodes(tb.nodes)
-    a, e1, e2, ng = _decode_tris(tb.tris)
+def _decoded(nodes, tris, max_leaf, base=0) -> Decoded:
+    bmin, bmax, first, count, miss = _decode_nodes(nodes, base)
+    a, e1, e2, ng = _decode_tris(tris)
     return Decoded(bmin=bmin, bmax=bmax, first=first, count=count,
-                   miss=miss, a=a, e1=e1, e2=e2, ng=ng,
-                   max_leaf=tb.max_leaf, n_nodes=tb.n_nodes)
+                   miss=miss, a=a, e1=e1, e2=e2, ng=ng, max_leaf=max_leaf,
+                   n_nodes=nodes.shape[0])
+
+
+def decode(tb) -> Decoded:
+    """The tables read back as one tree: a ``TraverseTables``' BVH, or a
+    ``MultiTables``' whole two-level table (its top nodes have count -1)."""
+    return _decoded(tb.nodes, tb.tris, tb.max_leaf)
 
 
 @dataclasses.dataclass
 class MultiTables:
-    """The multi-pack kernels' tables for one group of K packs.
+    """The multi-pack kernels' tables for one group of K packs: one
+    two-level skip-link table (see csrc/bvh_traverse.cu).
 
-    ``nodes`` [M, 8] f32: every pack's nodes in the layout of
-    ``TraverseTables``, pack after pack; inner links stay pack-local and
-    leaf ``first``s are global. ``offsets`` [K + 1] int32: pack p owns
-    nodes [offsets[p], offsets[p + 1]); its root is node offsets[p].
-    ``tris`` [T, 12] f32: the group's one triangle table, in pack order.
+    ``nodes`` [M, 8] f32 in the layout of ``TraverseTables``. The top tree
+    has the packs as leaves, in pack order, laid out depth first: an inner
+    top node (count -1, link = miss) over packs [lo, hi) has the exact
+    min/max of their root boxes and is followed by the top tree of
+    [lo, mid) and then that of [mid, hi), mid = (lo + hi) // 2; the top
+    tree of one pack is the pack's root with its nodes after it. Every link
+    is global. ``offsets`` [K, 2] int32 on the host: pack p owns nodes
+    [offsets[p, 0], offsets[p, 1]), its root first. ``tris`` [T, 12] f32:
+    the group's one triangle table, in pack order.
     """
 
     nodes: torch.Tensor
@@ -196,44 +207,71 @@ class MultiTables:
 
     @property
     def n_packs(self) -> int:
-        return self.offsets.shape[0] - 1
+        return self.offsets.shape[0]
+
+    @property
+    def n_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+
+def _two_level(pack_bvhs):
+    """The two-level node table of a group's packs and each pack's node
+    range (``MultiTables``). Refuses packs whose leaves do not follow one
+    another in the triangle table (a leaf's ``first`` must be global) or
+    whose leaves' skip links are not node + 1 (``_links``)."""
+    roots_lo = torch.stack([f.bmin[0] for f in pack_bvhs])
+    roots_hi = torch.stack([f.bmax[0] for f in pack_bvhs])
+    parts, ranges = [], []
+
+    def lay(lo, hi, at):
+        """Lays out the top tree of packs [lo, hi) from node ``at``;
+        returns the node after it."""
+        if hi - lo == 1:
+            f = pack_bvhs[lo]
+            end = at + f.first.shape[0]
+            parts.append((f.bmin, f.bmax, f.first, f.count, f.miss + at))
+            ranges.append((at, end))
+            return end
+        top = len(parts)
+        parts.append(None)
+        mid = (lo + hi) // 2
+        end = lay(mid, hi, lay(lo, mid, at + 1))
+        ints = torch.tensor([[0, -1, end]], dtype=torch.int32,
+                            device=roots_lo.device)
+        parts[top] = (roots_lo[lo:hi].amin(0, keepdim=True),
+                      roots_hi[lo:hi].amax(0, keepdim=True), *ints.T)
+        return end
+
+    lay(0, len(pack_bvhs), 0)
+    flat = T.FlatBVH(*(torch.cat(field) for field in zip(*parts)),
+                     max_leaf=max(f.max_leaf for f in pack_bvhs))
+    leaf = flat.count > 0
+    count = flat.count[leaf]
+    if not bool(torch.all(flat.first[leaf] == count.cumsum(0) - count)):
+        raise ValueError("the packs' leaves do not tile the triangle table "
+                         "in order")
+    return (_node_rows(flat.bmin, flat.bmax, _links(flat), flat.count),
+            torch.tensor(ranges, dtype=torch.int32))
 
 
 def build_multi_tables(pack_bvhs, vertices: torch.Tensor,
                        tri_vidx: torch.Tensor) -> MultiTables:
     """Tables from a group's pack FlatBVHs and the LIVE vertices, as
-    ``build_tables`` makes them for one FlatBVH: the packs' nodes and
-    offsets once per group, the triangle rows on every call."""
-    def make():
-        def cat(field):
-            return torch.cat([getattr(f, field) for f in pack_bvhs])
-
-        sizes = [0] + [f.first.shape[0] for f in pack_bvhs]
-        offsets = torch.tensor(sizes, dtype=torch.int32).cumsum(
-            0, dtype=torch.int32)
-        links = torch.cat([_links(f) for f in pack_bvhs])
-        return (_node_rows(cat("bmin"), cat("bmax"), links, cat("count")),
-                offsets.to(pack_bvhs[0].first.device))
-
-    nodes, offsets = _build_nodes(pack_bvhs[0].first, make)
+    ``build_tables`` makes them for one FlatBVH: the two-level node table
+    once per group, the triangle rows on every call."""
+    nodes, offsets = _build_nodes(pack_bvhs[0].first,
+                                  lambda: _two_level(pack_bvhs))
     return MultiTables(
         nodes=nodes, offsets=offsets, tris=_tri_rows(vertices, tri_vidx),
         max_leaf=max(f.max_leaf for f in pack_bvhs))
 
 
 def decode_multi(mt: MultiTables) -> Tuple[Decoded, ...]:
-    """The tables read back as one ``Decoded`` per pack, each over the
-    group's whole triangle table (its ``first`` is global)."""
-    a, e1, e2, ng = _decode_tris(mt.tris)
-    bounds = mt.offsets.tolist()
-    packs = []
-    for lo, hi in zip(bounds[:-1], bounds[1:]):
-        bmin, bmax, first, count, miss = _decode_nodes(mt.nodes[lo:hi])
-        packs.append(Decoded(
-            bmin=bmin, bmax=bmax, first=first, count=count, miss=miss,
-            a=a, e1=e1, e2=e2, ng=ng, max_leaf=mt.max_leaf,
-            n_nodes=hi - lo))
-    return tuple(packs)
+    """The tables read back as one ``Decoded`` per pack, with pack-local
+    links, each over the group's whole triangle table (its ``first`` is
+    global)."""
+    return tuple(_decoded(mt.nodes[lo:hi], mt.tris, mt.max_leaf, base=lo)
+                 for lo, hi in mt.offsets.tolist())
 
 
 class Work(NamedTuple):
@@ -244,44 +282,121 @@ class Work(NamedTuple):
     tris: torch.Tensor      # triangle tests
 
 
-def _counted_walk(dec: Decoded, o: Vec3, d: Vec3, int_eps, limit, cap,
-                  work: torch.Tensor):
+def _boxed(w: intersect._Walk) -> torch.Tensor:
+    """Lanes whose o, d and 1/d are all finite: only these may be culled
+    by a top node of a two-level table."""
+    out = torch.ones_like(w.lane, dtype=torch.bool)
+    for v in (w.o, w.d, w.inv_d):
+        for c in v:
+            out &= torch.isfinite(c)
+    return out
+
+
+def _counted_walk(dec: Decoded, o: Vec3, d: Vec3, int_eps, best, cap,
+                  work: torch.Tensor, top=None):
     """One tree's plain walk with counters added into ``work`` [3, N]: the
-    walk of ``intersect._tri_bvh_candidates`` when ``cap`` is None (``limit``
-    [N], each ray's best |t| so far, is updated), else that of
-    ``intersect._tri_bvh_anyhit``, whose answers are returned. An any-hit
-    leaf counts its triangles up to the first that occludes."""
-    found = None if cap is None else torch.zeros_like(cap, dtype=torch.bool)
+    walk of ``intersect._tri_bvh_candidates`` when ``cap`` is None (``best``,
+    each ray's |t| key, t and prim so far, [N] each, is updated in place),
+    else that of ``intersect._tri_bvh_anyhit``, whose answers are returned.
+    An any-hit leaf counts its triangles up to the first that occludes.
+
+    ``top`` [M] bool marks the top nodes of a two-level table, walked as
+    the multi-pack kernels walk it (csrc/bvh_traverse.cu): a lane that is
+    not ``_boxed`` enters every top node, and the nearest walk prunes each
+    pack with the pack's own best |t|, which starts again at 3e38 where the
+    walk leaves a pack, while ``best`` takes a hit only below itself too.
+    """
+    nearest = cap is None
+    found = None if nearest else torch.zeros_like(cap, dtype=torch.bool)
     w = intersect._Walk(dec, o, d, int_eps)
-    lim = (limit if cap is None else cap)[w.lane]
+    if nearest:
+        # key, t, idx; the prune limit; the end of the lane's pack (past
+        # the tree where no limit restarts)
+        state = [b[w.lane] for b in best]
+        state += [state[0].clone(), torch.full_like(
+            w.lane, 0 if top is not None else dec.n_nodes)]
+    else:
+        state = [cap[w.lane], torch.zeros_like(w.lane, dtype=torch.bool)]
     while w.lane.shape[0]:
+        if nearest:
+            lim, pend = state[3], state[4]
+            left = w.node >= pend      # at a top node or a pack's root
+            lim[left] = intersect._BIG
+            root = left & (dec.count[w.node] >= 0)
+            pend[root] = dec.miss[w.node[root]].long()
+        else:
+            lim = state[0]
         box_hit, entry, is_leaf = w.visit()
         box_hit = box_hit & ~(entry > lim)
+        enter = box_hit if top is None else (
+            box_hit | (top[w.node] & ~_boxed(w)))
         work[0, w.lane] += 1
         li = torch.nonzero(box_hit & is_leaf)[:, 0]
-        got = torch.zeros_like(box_hit)
         if li.shape[0]:
-            ok, tt, _ = w.leaf_tests(li)
+            ok, tt, pi = w.leaf_tests(li)
             count = dec.count[w.node[li]].long()
             work[1, w.lane[li]] += 1
-            if cap is None:
+            if nearest:
+                key, t, idx = state[:3]
                 k = torch.where(ok, torch.abs(tt), intersect._BIG)
-                lim[li] = torch.minimum(lim[li], k.min(dim=1).values)
+                ck, cj = torch.min(k, dim=1)
+                lim[li] = torch.minimum(lim[li], ck)
+                upd = ck < key[li]
+                key[li] = torch.where(upd, ck, key[li])
+                t[li] = torch.where(
+                    upd, torch.gather(tt, 1, cj[:, None])[:, 0], t[li])
+                idx[li] = torch.where(
+                    upd, torch.gather(pi, 1, cj[:, None])[:, 0].to(
+                        torch.int32), idx[li])
                 work[2, w.lane[li]] += count
             else:
+                got = state[1]
                 occ = ok & (tt > 0) & (tt < lim[li][:, None])
                 hit = occ.any(dim=1)
                 upto = occ.to(torch.uint8).argmax(dim=1) + 1
                 work[2, w.lane[li]] += torch.where(hit, upto, count)
                 got[li] = hit
-        w.advance(box_hit & ~is_leaf)
-        done = got | (w.node >= dec.n_nodes)
-        (lanes, lim_d, got_d), (lim, _) = w.retire(done, lim, got)
-        if cap is None:
-            limit[lanes] = lim_d
+        w.advance(enter & ~is_leaf)
+        done = w.node >= dec.n_nodes
+        if not nearest:
+            done = done | state[1]
+        (lanes, *out), state = w.retire(done, *state)
+        state = list(state)
+        if nearest:
+            for b, x in zip(best, out):
+                b[lanes] = x
         else:
-            found[lanes] = got_d
+            found[lanes] = out[1]
     return found
+
+
+def _walk(trees, o: Vec3, d: Vec3, int_eps, t_cap, top=None):
+    """``trees`` walked one after another with counters, the best hit
+    carried from tree to tree (nearest) or a ray leaving at its first
+    occluder (any-hit): (answers, Work), the answers (|t| key, t, prim) or
+    [N] bool."""
+    n = o.x.shape[0]
+    dev = o.x.device
+    work = torch.zeros((3, n), dtype=torch.int64, device=dev)
+    best = [torch.full((n,), intersect._BIG, device=dev),
+            torch.zeros((n,), device=dev),
+            torch.zeros((n,), dtype=torch.int32, device=dev)]
+    live = torch.arange(n, device=dev)
+    for dec in trees:
+        if t_cap is None:
+            _counted_walk(dec, o, d, int_eps, best, None, work, top)
+            continue
+        sub = torch.zeros((3, live.shape[0]), dtype=torch.int64, device=dev)
+        found = _counted_walk(dec, intersect._gather3(o, live),
+                              intersect._gather3(d, live), int_eps, None,
+                              t_cap[live], sub, top)
+        work[:, live] += sub
+        live = live[~found]
+    if t_cap is None:
+        return tuple(best), Work(*work)
+    found = torch.ones((n,), dtype=torch.bool, device=dev)
+    found[live] = False
+    return found, Work(*work)
 
 
 def walk_work(tables, o: Vec3, d: Vec3, int_eps, t_cap=None) -> Work:
@@ -293,24 +408,19 @@ def walk_work(tables, o: Vec3, d: Vec3, int_eps, t_cap=None) -> Work:
     leaving at its first occluder (any-hit). It counts the work behind a
     kernel's bound (chip_smoke.py); nothing on the render path calls it.
     """
-    n = o.x.shape[0]
-    dev = o.x.device
-    work = torch.zeros((3, n), dtype=torch.int64, device=dev)
-    best = torch.full((n,), intersect._BIG, device=dev)
     trees = (decode_multi(tables) if isinstance(tables, MultiTables)
              else (decode(tables),))
-    live = torch.arange(n, device=dev)
-    for dec in trees:
-        if t_cap is None:
-            _counted_walk(dec, o, d, int_eps, best, None, work)
-            continue
-        sub = torch.zeros((3, live.shape[0]), dtype=torch.int64, device=dev)
-        found = _counted_walk(dec, intersect._gather3(o, live),
-                              intersect._gather3(d, live), int_eps, None,
-                              t_cap[live], sub)
-        work[:, live] += sub
-        live = live[~found]
-    return Work(*work)
+    return _walk(trees, o, d, int_eps, t_cap)[1]
+
+
+def walk_two_level(mt: MultiTables, o: Vec3, d: Vec3, int_eps, t_cap=None):
+    """The multi-pack kernels' walk on the host: the whole two-level table
+    as one tree, in the kernels' node order, with counters. Returns
+    (answers, Work) as ``_walk`` does; they must equal the plain per-pack
+    walks' (``intersect._tri_bvh_candidates_multi``,
+    ``_tri_bvh_anyhit_multi``)."""
+    dec = decode(mt)
+    return _walk((dec,), o, d, int_eps, t_cap, top=dec.count < 0)
 
 
 def _nvcc() -> str:
@@ -369,7 +479,7 @@ def _check(name, x, dtype, shape, device):
 def _kernel_args(tb, o: Vec3, d: Vec3, int_eps, extra=()):
     """Validated pointer arguments shared by the kernels: (rays, extra
     per-ray inputs, tables). ``tb`` is a ``TraverseTables`` or a
-    ``MultiTables``; the latter adds its pack offsets after ``nodes``."""
+    ``MultiTables``; both give nodes, tris and the node count."""
     dev = o.x.device
     if dev.type != "cuda":
         raise ValueError(f"the traversal kernels run on CUDA, not {dev}")
@@ -378,21 +488,12 @@ def _kernel_args(tb, o: Vec3, d: Vec3, int_eps, extra=()):
         _check(name, c, torch.float32, (n,), dev)
     for name, c in extra:
         _check(name, c, torch.float32, (n,), dev)
-    m = tb.nodes.shape[0]
-    _check("nodes", tb.nodes, torch.float32, (m, 8), dev)
-    tables = [tb.nodes]
-    if isinstance(tb, MultiTables):
-        if not 1 <= tb.n_packs <= MAX_PACKS:
-            raise ValueError(f"the multi-pack kernels take 1 to {MAX_PACKS} "
-                             f"packs, got {tb.n_packs}")
-        _check("offsets", tb.offsets, torch.int32, (tb.n_packs + 1,), dev)
-        tables.append(tb.offsets)
+    _check("nodes", tb.nodes, torch.float32, (tb.n_nodes, 8), dev)
     _check("tris", tb.tris, torch.float32, (tb.tris.shape[0], 12), dev)
     _check("int_eps", int_eps, torch.float32, (), dev)
-    tables += [tb.tris, int_eps]
     return ([c.data_ptr() for c in (*o, *d)],
             [c.data_ptr() for _, c in extra],
-            [c.data_ptr() for c in tables])
+            [c.data_ptr() for c in (tb.nodes, tb.tris, int_eps)])
 
 
 def _launch(name: str, *args):
@@ -405,39 +506,35 @@ def _launch(name: str, *args):
     LAUNCHES[name] += 1
 
 
-def _scratch(name, device):
-    """The single-pack kernels' ray counter (their persistent warps take
-    rays from it), zeroed; the multi-pack kernels take none."""
-    if name.endswith("_multi"):
-        return []
-    return [torch.zeros((1,), dtype=torch.int32, device=device)]
+def _ray_counter(device):
+    """The persistent warps' ray counter (they take rays from it), zeroed."""
+    return torch.zeros((1,), dtype=torch.int32, device=device)
 
 
-def _nearest(name, tb, o: Vec3, d: Vec3, int_eps, size: int):
+def _nearest(name, tb, o: Vec3, d: Vec3, int_eps):
     rays, _, tables = _kernel_args(tb, o, d, int_eps)
     n = o.x.shape[0]
     key = torch.empty((n,), dtype=torch.float32, device=o.x.device)
     t = torch.empty_like(key)
     idx = torch.empty((n,), dtype=torch.int32, device=o.x.device)
     if n:
-        scratch = _scratch(name, o.x.device)
+        counter = _ray_counter(o.x.device)
         with torch.cuda.device(o.x.device):
-            _launch(name, *rays, *tables, size, n,
-                    *(c.data_ptr() for c in scratch), key.data_ptr(),
-                    t.data_ptr(), idx.data_ptr())
+            _launch(name, *rays, *tables, tb.n_nodes, n, counter.data_ptr(),
+                    key.data_ptr(), t.data_ptr(), idx.data_ptr())
     return key, t, idx
 
 
-def _anyhit(name, tb, o: Vec3, d: Vec3, t_cap, int_eps, size: int):
+def _anyhit(name, tb, o: Vec3, d: Vec3, t_cap, int_eps):
     rays, (cap,), tables = _kernel_args(tb, o, d, int_eps,
                                         extra=(("t_cap", t_cap),))
     n = o.x.shape[0]
     found = torch.empty((n,), dtype=torch.bool, device=o.x.device)
     if n:
-        scratch = _scratch(name, o.x.device)
+        counter = _ray_counter(o.x.device)
         with torch.cuda.device(o.x.device):
-            _launch(name, *rays, cap, *tables, size, n,
-                    *(c.data_ptr() for c in scratch), found.data_ptr())
+            _launch(name, *rays, cap, *tables, tb.n_nodes, n,
+                    counter.data_ptr(), found.data_ptr())
     return found
 
 
@@ -448,7 +545,7 @@ def tri_bvh_nearest(tb: TraverseTables, o: Vec3, d: Vec3, int_eps):
     """
     if o.x.device.type == "cpu":
         return intersect._tri_bvh_candidates(decode(tb), o, d, int_eps)
-    return _nearest("nearest", tb, o, d, int_eps, tb.n_nodes)
+    return _nearest("nearest", tb, o, d, int_eps)
 
 
 def tri_bvh_anyhit(tb: TraverseTables, o: Vec3, d: Vec3,
@@ -459,21 +556,21 @@ def tri_bvh_anyhit(tb: TraverseTables, o: Vec3, d: Vec3,
     """
     if o.x.device.type == "cpu":
         return intersect._tri_bvh_anyhit(decode(tb), o, d, t_cap, int_eps)
-    return _anyhit("anyhit", tb, o, d, t_cap, int_eps, tb.n_nodes)
+    return _anyhit("anyhit", tb, o, d, t_cap, int_eps)
 
 
 def tri_bvh_nearest_multi(mt: MultiTables, o: Vec3, d: Vec3, int_eps):
     """Nearest hit over all packs: (|t| key, t, prim index in the group's
     order), [N] each; key 3e38 on a miss.
 
-    CPU tensors take the plain per-pack walk. Where two packs hold hits of
-    exactly the same |t|, the plain walk keeps the lower pack and the
-    kernel the pack it reached first; everything else is equal.
+    CPU tensors take the plain per-pack walk; the kernel gives its outputs
+    bit for bit, the lower pack's prim at an exact |t| tie between packs
+    included.
     """
     if o.x.device.type == "cpu":
         return intersect._tri_bvh_candidates_multi(decode_multi(mt), o, d,
                                                    int_eps)
-    return _nearest("nearest_multi", mt, o, d, int_eps, mt.n_packs)
+    return _nearest("nearest_multi", mt, o, d, int_eps)
 
 
 def tri_bvh_anyhit_multi(mt: MultiTables, o: Vec3, d: Vec3,
@@ -483,7 +580,7 @@ def tri_bvh_anyhit_multi(mt: MultiTables, o: Vec3, d: Vec3,
     if o.x.device.type == "cpu":
         return intersect._tri_bvh_anyhit_multi(decode_multi(mt), o, d, t_cap,
                                                int_eps)
-    return _anyhit("anyhit_multi", mt, o, d, t_cap, int_eps, mt.n_packs)
+    return _anyhit("anyhit_multi", mt, o, d, t_cap, int_eps)
 
 
 def reset_launch_counts():

@@ -235,7 +235,8 @@ def test_node_tables_made_once_per_build():
         # another build of the same tree gets tables of its own
         fresh = build(to_device(host_tree, "cpu"), moved, tv_t)
         assert fresh.nodes is not tb.nodes
-        assert fresh.nodes.equal(tb.nodes)
+        # compared as bits: a top node's count -1 reads as a NaN float
+        assert fresh.nodes.view(torch.int32).equal(tb.nodes.view(torch.int32))
 
 
 def test_numpy_builder_gives_native_hits():
@@ -277,7 +278,7 @@ def test_kernels_match_plain_walks_on_card(t, n, seed):
 
 def _port_multi(packs, verts, tv, o, d, cap, device):
     """The port's multi-pack wrappers (plain per-pack walks on CPU, the
-    kernels on CUDA): (key, t, idx, found) and the decoded packs."""
+    kernels on CUDA): (key, t, idx, found)."""
     from raytracer795_tpu_torch.ops import bvh_traverse
     from raytracer795_tpu_torch.scene.types import to_device
     from raytracer795_tpu_torch.utils.vec3 import Vec3
@@ -296,39 +297,71 @@ def _port_multi(packs, verts, tv, o, d, cap, device):
     return tuple(x.cpu().numpy() for x in (key, t, idx, found))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("t,n,seed,pack_tris", [(600, 4096, 2, 128),
-                                                (4096, 8192, 3, 512)])
-def test_multi_kernels_match_plain_walks_on_card(t, n, seed, pack_tris):
-    """The multi-pack kernels against the plain per-pack walks: masks,
-    |t| keys and any-hit answers equal; ids and t equal except at exact
-    |t| ties between packs, where both ids name triangles at that |t|."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+def _multi_case(case):
+    """(packs, vertices, group-ordered tri_vidx, o, d, cap) of a multi-pack
+    case: random meshes cut into 5, 8 and 71 packs (the last over the
+    64-pack cap the kernels once had) with the rays of ``_random_rays``,
+    the knife-edge lanes of ``chip_smoke.knife_edge_rays`` over 5 packs
+    and over 4 packs whose last root is a leaf, and the hand-built case
+    of the top-node rule."""
     from raytracer795_tpu_torch.ops import bvh
 
+    if case == "top rule":
+        return _rule_case()
+    t, n, seed, pack_tris = {"5 packs": (600, 4096, 2, 128),
+                             "8 packs": (4096, 8192, 3, 512),
+                             "71 packs": (9000, 2048, 4, 128),
+                             "knife edges": (600, 4096, 5, 128),
+                             "knife edges, leaf root": (1000, 4096, 6, 333)
+                             }[case]
     verts, tri_vidx = _random_mesh(t, seed)
     perm, packs = bvh.build_multipack(verts, tri_vidx, pack_tris=pack_tris)
-    assert len(packs) >= 4
-    tv = tri_vidx[perm]
-    o, d = _random_rays(n, seed + 10)
-    cap = np.random.default_rng(seed + 20).uniform(0.1, 5.0, n).astype(
-        np.float32)
-    key, t_, idx, found = _port_multi(packs, verts, tv, o, d, cap, "cuda")
-    rk, rt, ridx, rfound = _port_multi(packs, verts, tv, o, d, cap, "cpu")
-    np.testing.assert_array_equal(key, rk)
-    np.testing.assert_array_equal(found, rfound)
-    hit = key < 1e38
-    same = hit & (idx == ridx)
-    np.testing.assert_array_equal(t_[same], rt[same])
-    a, b, c = (verts[tv[:, k]].astype(np.float64) for k in range(3))
-    for lane in np.nonzero(hit & ~same)[0]:
-        for j in (idx[lane], ridx[lane]):
-            # the triangle's plane meets the ray at the lane's |t|
-            n_ = np.cross(b[j] - a[j], c[j] - a[j])
-            tj = n_ @ (a[j] - o[lane]) / (n_ @ d[lane])
-            np.testing.assert_allclose(abs(tj), key[lane], rtol=1e-4)
-    assert hit.any() and found.any()
+    if case.startswith("knife"):
+        o, d, cap = _chip_smoke().knife_edge_rays(packs, n, seed + 10)
+    else:
+        o, d = _random_rays(n, seed + 10)
+        cap = np.random.default_rng(seed + 20).uniform(0.1, 5.0, n).astype(
+            np.float32)
+    return packs, verts, tri_vidx[perm], o, d, cap
+
+
+def _chip_smoke():
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rule_case():
+    """chip_smoke.rule_inputs: two packs whose union box misses rays that
+    pack 1's root hits through a NaN slab test."""
+    return _chip_smoke().rule_inputs()
+
+
+MULTI_CASES = ["5 packs", "8 packs", "71 packs", "knife edges",
+               "knife edges, leaf root", "top rule"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MULTI_CASES)
+def test_multi_kernels_match_plain_walks_on_card(case):
+    """The multi-pack kernels against the plain per-pack walks: |t| keys,
+    t, prim ids and any-hit answers equal bit for bit, and again on a
+    second launch, over 71 packs too (the kernels once took 64 at most)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    packs, verts, tv, o, d, cap = _multi_case(case)
+    got = _port_multi(packs, verts, tv, o, d, cap, "cuda")
+    again = _port_multi(packs, verts, tv, o, d, cap, "cuda")
+    ref = _port_multi(packs, verts, tv, o, d, cap, "cpu")
+    for a, b, c in zip(got, again, ref):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(a, b)
+    assert (ref[0] < 1e38).any() and ref[3].any()
 
 
 @pytest.mark.cuda
@@ -550,28 +583,7 @@ def test_native_builder_source_is_the_ports_own():
     assert native.load_bvh_builder() is not None
 
 
-def test_ctypes_signatures_match_the_c_entry_points():
-    """Each C entry point takes the pointers ``C_ARGS`` declares around its
-    two ints: ctypes passes an undeclared argument as a 32-bit int, which
-    would cut a pointer."""
-    import re
-
-    from raytracer795_tpu_torch.ops import bvh_traverse
-
-    src = open(bvh_traverse.SOURCE).read()
-    for name, (n_in, n_out) in bvh_traverse.C_ARGS.items():
-        sig = re.search(r'extern "C" int rt795_bvh_%s\(([^)]*)\)' % name,
-                        src).group(1)
-        kinds = ["int" if re.fullmatch(r"\s*int \w+\s*", a) else "ptr"
-                 for a in sig.split(",")]
-        assert kinds == ["ptr"] * n_in + ["int"] * 2 + ["ptr"] * n_out, name
-
-
-def test_design_step_variants_apply_to_the_kernel_source():
-    """tools/torch_traverse_steps.py times each step of the kernels' design
-    through text substitutions of csrc/bvh_traverse.cu: every substitution
-    must still find its text, and every variant must be a source of its
-    own."""
+def _steps_tool():
     import importlib.util
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -580,8 +592,206 @@ def test_design_step_variants_apply_to_the_kernel_source():
         os.path.join(root, "tools", "torch_traverse_steps.py"))
     steps = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(steps)
+    return steps
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each C entry point takes the pointers ``C_ARGS`` declares around its
+    two ints: ctypes passes an undeclared argument as a 32-bit int, which
+    would cut a pointer. The same holds for the entry points that
+    tools/torch_traverse_steps.py adds in its sorted-pack-list variant."""
+    import re
+
+    from raytracer795_tpu_torch.ops import bvh_traverse
+
+    steps = _steps_tool()
+    src = open(bvh_traverse.SOURCE).read()
+    (listed_subs,) = [subs for name, subs, _ in steps.VARIANTS
+                      if name == steps.LISTED]
+    for text, args in ((src, bvh_traverse.C_ARGS),
+                       (steps.variant_source(src, listed_subs),
+                        steps.LISTED_ARGS)):
+        for name, (n_in, n_out) in args.items():
+            sig = re.search(r'extern "C" int rt795_bvh_%s\(([^)]*)\)' % name,
+                            text).group(1)
+            kinds = ["int" if re.fullmatch(r"\s*int \w+\s*", a) else "ptr"
+                     for a in sig.split(",")]
+            assert kinds == ["ptr"] * n_in + ["int"] * 2 + ["ptr"] * n_out, \
+                name
+
+
+def test_design_step_variants_apply_to_the_kernel_source():
+    """tools/torch_traverse_steps.py times each step of the kernels' design
+    through text substitutions of csrc/bvh_traverse.cu: every substitution
+    must still find its text, and every variant must be a source of its
+    own; the multi-pack variants named in the tool are there."""
+    steps = _steps_tool()
     src = open(steps.bt.SOURCE).read()
-    names = [name for name, _ in steps.VARIANTS]
+    names = [name for name, _, _ in steps.VARIANTS]
     assert names[0] == "design" and len(set(names)) == len(names)
-    made = [steps.variant_source(src, subs) for _, subs in steps.VARIANTS]
+    assert {steps.CARRIED, steps.LISTED,
+            "top culling off (every pack root tested)"} <= set(names)
+    made = [steps.variant_source(src, subs) for _, subs, _ in steps.VARIANTS]
     assert made[0] == src and len(set(made)) == len(made)
+
+
+def _multi_tables(packs, verts, tv, o, d, cap, eps=EPS):
+    """CPU tables and tensors of a multi-pack case."""
+    from raytracer795_tpu_torch.ops import bvh_traverse
+    from raytracer795_tpu_torch.scene.types import to_device
+    from raytracer795_tpu_torch.utils.vec3 import Vec3
+
+    def col(a):
+        return Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                      for k in range(3)))
+    mt = bvh_traverse.build_multi_tables(
+        to_device(packs, "cpu"), torch.from_numpy(verts), torch.from_numpy(tv))
+    return mt, col(o), col(d), torch.from_numpy(cap), torch.tensor(eps)
+
+
+@pytest.mark.parametrize("case", ["5 packs", "71 packs",
+                                  "knife edges, leaf root", "one pack"])
+def test_two_level_table_round_trip(case):
+    """The two-level table reads back as each pack's FlatBVH exactly, its
+    packs in order; every top node has the exact min/max of its packs'
+    root boxes, count -1 and a skip link just past its packs; leaves keep
+    skip links of node + 1 and global ``first``s that tile the triangle
+    table in order."""
+    from raytracer795_tpu_torch.ops import bvh, bvh_traverse
+
+    if case == "one pack":
+        verts, tri_vidx = _random_mesh(300, 8)
+        perm, packs = bvh.build_multipack(verts, tri_vidx, pack_tris=512)
+        o, d = _random_rays(8, 8)
+        tv, cap = tri_vidx[perm], np.ones(8, np.float32)
+    else:
+        packs, verts, tv, o, d, cap = _multi_case(case)
+    mt = _multi_tables(packs, verts, tv, o, d, cap)[0]
+    k = len(packs)
+    assert mt.n_packs == k
+    for flat, dec in zip(packs, bvh_traverse.decode_multi(mt)):
+        leaf = flat.count > 0
+        np.testing.assert_array_equal(np.stack(dec.bmin, -1), flat.bmin)
+        np.testing.assert_array_equal(np.stack(dec.bmax, -1), flat.bmax)
+        np.testing.assert_array_equal(dec.count.numpy(), flat.count)
+        np.testing.assert_array_equal(dec.miss.numpy(), flat.miss)
+        np.testing.assert_array_equal(dec.first.numpy()[leaf],
+                                      flat.first[leaf])
+    whole = bvh_traverse.decode(mt)
+    count, miss = whole.count.numpy(), whole.miss.numpy()
+    bmin, bmax = np.stack(whole.bmin, -1), np.stack(whole.bmax, -1)
+    ranges = mt.offsets.numpy()
+    assert (ranges[1:, 0] > ranges[:-1, 0]).all()
+    in_pack = np.zeros(mt.n_nodes, bool)
+    for lo, hi in ranges:
+        in_pack[lo:hi] = True
+    top = np.nonzero(~in_pack)[0]
+    assert top.shape[0] == k - 1 and (count[top] == -1).all()
+    for i in top:
+        under = (ranges[:, 0] > i) & (ranges[:, 1] <= miss[i])
+        assert under.sum() >= 2 and ranges[under][-1, 1] == miss[i]
+        roots = ranges[under, 0]
+        np.testing.assert_array_equal(bmin[i], bmin[roots].min(0))
+        np.testing.assert_array_equal(bmax[i], bmax[roots].max(0))
+    leaf = np.nonzero(count > 0)[0]
+    np.testing.assert_array_equal(miss[leaf], leaf + 1)
+    np.testing.assert_array_equal(
+        mt.nodes.view(torch.int32)[leaf, 3].numpy(),
+        np.cumsum(count[leaf]) - count[leaf])
+    assert np.cumsum(count[leaf])[-1] == tv.shape[0]
+
+
+def _plain_multi(mt, o, d, cap, eps):
+    from raytracer795_tpu_torch.ops import bvh_traverse, intersect
+
+    packs = bvh_traverse.decode_multi(mt)
+    return (*intersect._tri_bvh_candidates_multi(packs, o, d, eps),
+            intersect._tri_bvh_anyhit_multi(packs, o, d, cap, eps))
+
+
+def _two_level(mt, o, d, cap, eps, top_rule=True):
+    """The two-level walk's (key, t, idx, found); without ``top_rule``, the
+    same table walked as a plain tree, whose top nodes cull every ray."""
+    from raytracer795_tpu_torch.ops import bvh_traverse
+
+    if top_rule:
+        def walk(c):
+            return bvh_traverse.walk_two_level(mt, o, d, eps, c)[0]
+    else:
+        def walk(c):
+            return bvh_traverse._walk((bvh_traverse.decode(mt),), o, d, eps,
+                                      c)[0]
+    return (*walk(None), walk(cap))
+
+
+@pytest.mark.parametrize("case", MULTI_CASES)
+def test_two_level_walk_equals_plain_walk(case):
+    """The multi-pack kernels' walk of the two-level table, on the host,
+    gives the plain per-pack walks' |t| keys, t, prim ids and any-hit
+    answers bit for bit: on random meshes in 5, 8 and 71 packs, on
+    knife-edge lanes (NaN; +-0, denormal and infinite direction
+    components; infinite origins; origins on pack-root planes; caps 0 and
+    +inf) and on the hand-built case of the top-node rule."""
+    mt, o, d, cap, eps = _multi_tables(*_multi_case(case))
+    got = _two_level(mt, o, d, cap, eps)
+    ref = _plain_multi(mt, o, d, cap, eps)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert bool((ref[0] < 1e38).any()) and bool(ref[3].any())
+
+
+def test_top_node_rule_is_needed():
+    """Without the rule (a top node culls every ray), the two-level walk
+    loses the rule case's hits through a pack root's NaN slab test: the
+    union box misses where the root counts as hit."""
+    mt, o, d, cap, eps = _multi_tables(*_rule_case())
+    ref = _plain_multi(mt, o, d, cap, eps)
+    assert ref[0].tolist()[:2] == [1.5, 1.5] and ref[3].tolist() == [
+        True, True, False]
+    got = _two_level(mt, o, d, cap, eps)
+    off = _two_level(mt, o, d, cap, eps, top_rule=False)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert bool((off[0][:2] > 1e38).all())
+    assert not bool(off[3].any())
+
+
+def _shared_edge_surface(g=40):
+    """A height field of (g - 1)^2 quads, two triangles each, whose
+    neighbours share edges."""
+    xs, ys = np.meshgrid(np.linspace(-2, 2, g), np.linspace(-2, 2, g))
+    zs = 0.3 * np.sin(3 * xs) * np.cos(2 * ys)
+    verts = np.stack([xs, ys, zs], -1).reshape(-1, 3).astype(np.float32)
+    i = (np.arange(g - 1)[:, None] * g + np.arange(g - 1)[None, :]).ravel()
+    tri_vidx = np.concatenate([np.stack([i, i + 1, i + g], 1),
+                               np.stack([i + 1, i + g + 1, i + g], 1)])
+    return verts, tri_vidx.astype(np.int32)
+
+
+def test_carried_best_is_not_exact_but_the_two_level_walk_is():
+    """On a surface of shared edges cut into 48 packs, with a wide
+    int_eps, a best |t| carried from pack to pack (what walk_work counts)
+    prunes packs holding a nearer hit accepted outside its leaf box, so it
+    changes some lanes; the kernels' walk, which prunes each pack with its
+    own best, equals the plain per-pack walks on every lane."""
+    from raytracer795_tpu_torch.ops import bvh, bvh_traverse
+
+    verts, tri_vidx = _shared_edge_surface()
+    perm, packs = bvh.build_multipack(verts, tri_vidx, pack_tris=64)
+    assert len(packs) == 48
+    n = 4096
+    rng = np.random.default_rng(1)
+    o = np.concatenate([rng.uniform(-2, 2, (n, 2)), np.full((n, 1), 3.0)],
+                       1).astype(np.float32)
+    d = np.concatenate([rng.uniform(-2, 2, (n, 2)), np.full((n, 1), -0.3)],
+                       1).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    mt, o, d, cap, eps = _multi_tables(packs, verts, tri_vidx[perm], o, d,
+                                       np.full(n, 9.0, np.float32), 3e-2)
+    ref = _plain_multi(mt, o, d, cap, eps)
+    for a, b in zip(_two_level(mt, o, d, cap, eps), ref):
+        assert torch.equal(a, b)
+    (key, t, idx), _ = bvh_traverse._walk(bvh_traverse.decode_multi(mt), o,
+                                          d, eps, None)
+    carried_differ = (key != ref[0]) | (t != ref[1]) | (idx != ref[2])
+    assert 0 < int(carried_differ.sum()) < n // 100
