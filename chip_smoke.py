@@ -85,10 +85,25 @@ non-zero and prints no result:
    frame; and a 64x64,
    2-spp frame rendered twice, once through the kernels and once with the
    wrappers swapped for the plain walks: the LDR frames must be equal.
+16. textures, the environment light and image backgrounds: whether PIL
+   imports here is printed (the port reads PNG, JPEG and EXR itself); the
+   textures, background and ply_smooth goldens at tests/test_golden.py's
+   mean and frac>2 bounds and the envlight golden at its sky, pooled and
+   mean bounds; ``render_scene`` of tests/scenes/rock100k_tex.xml (rock100k
+   with Perlin color and bump on the rock, image color and bump on the
+   floor, a JPEG background) at 400x400 with the counters reset just
+   before and read just after (both single-pack kernels launched, no
+   multi-pack launch, no plain walk) against the JAX package's frame
+   tests/goldens/rock100k_tex_jax.ppm at frac(|dLDR| > 1) < 1e-4; its
+   800x800 frame median of 5 beside rock100k's from phase 5; one profiled
+   800x800 frame of each (kernels run, device ms, busy share, the
+   traversal kernels' ms) and the texture stage's device ms and kernels
+   (every ``apply_textures`` call of the frame, replayed under the
+   profiler).
 
 The ``kernels`` line's launch counts are summed over the main paths that
-run each kernel (phases 4, 7, 8, 11 and 15, each counted from 0). The last
-three lines are the card, the kernels' JSON record and the result line;
+run each kernel (phases 4, 7, 8, 11, 15 and 16, each counted from 0). The
+last three lines are the card, the kernels' JSON record and the result line;
 the wall time is printed on an earlier line. It imports nothing of jax or
 of the JAX package.
 """
@@ -97,6 +112,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import os
 import re
@@ -133,6 +149,9 @@ RNG_UNIFORM_2x5_BITS = [[1049146072, 1060889640, 1064576818, 1045860880,
 # (scene, mean tol, p99 tol) of tests/test_golden.py:45-50
 STOCHASTIC_BOUNDS = (("arealight", 2.0, 12.0), ("motionblur", 2.0, 12.0),
                      ("distributed", 2.5, 14.0))
+# (scene, mean tol, frac>2 tol) of tests/test_golden.py:30-32
+TEXTURE_GOLDENS = (("textures", 0.05, 0.002), ("background", 0.05, 0.002),
+                   ("ply_smooth", 0.2, 0.01))
 MS_RES, MS_SPP = 800, 4     # bench_mesh.py's and bench.py's frames
 PT_RES, PT_SPP = 400, 4     # rock100k_pt's main path
 PLAIN_WALKS = ("_tri_bvh_candidates", "_tri_bvh_anyhit",
@@ -1040,6 +1059,93 @@ def rock_pt_phase(render, bt, intersect, load_scene, dev, card, per_draw,
     return launches, max(errs), float(max(mism) > 0)
 
 
+def texture_phase(render, bt, intersect, load_scene, read_ppm, dev, card,
+                  rock_800_median_s):
+    """Phase 16; returns the rock100k_tex main path's launch counts."""
+    from raytracer795_tpu_torch.models import whitted
+
+    phase("pil", pil_importable=importlib.util.find_spec("PIL") is not None)
+    for name, mean_tol, frac_tol in TEXTURE_GOLDENS:
+        ld = load_scene(os.path.join(SCENES, name + ".xml"), dev)
+        img = render.render_camera(ld, 0, ldr=True).astype(np.float32)
+        diff = np.abs(img - read_ppm(os.path.join(GOLDENS, name + ".ppm")))
+        mean, frac2 = float(diff.mean()), float((diff > 2).mean())
+        check(mean < mean_tol and frac2 < frac_tol,
+              f"{name} golden: mean {mean}, frac>2 {frac2}")
+        phase("golden", scene=name, mean_abs=mean, frac_gt2=frac2)
+    ld = load_scene(os.path.join(SCENES, "envlight.xml"), dev)
+    check(ld.scene.env_texture >= 0, "envlight has its environment light")
+    img = render.render_camera(ld, 0, ldr=True).astype(np.float32)
+    gold = read_ppm(os.path.join(GOLDENS, "envlight.ppm"))
+    sky = float(np.abs(img[:40] - gold[:40]).mean())
+
+    def pool(a):
+        return a.reshape(20, 8, 20, 8, 3).mean(axis=(1, 3))
+    pooled = float(np.abs(pool(img) - pool(gold)).mean())
+    dmean = float(abs(img.mean() - gold.mean()))
+    check(sky < 0.05 and pooled < 6.0 and dmean < 3.0,
+          f"envlight golden: sky {sky}, pooled {pooled}, |dmean| {dmean}")
+    phase("golden", scene="envlight", spp=ld.cameras[0].num_samples,
+          sky_mean_abs=sky, pooled8_mean_abs=pooled, abs_dmean=dmean)
+
+    xml = os.path.join(SCENES, "rock100k_tex.xml")
+    rt = load_scene(xml, dev)
+    (group,) = rt.scene.groups
+    check(group.bvh is not None and group.n_tris < 120_000
+          and rt.scene.n_textures == 5 and rt.scene.bg_texture == 4,
+          "rock100k_tex is one single-pack BVH group with its 5 textures")
+    with counting(intersect, PLAIN_WALKS) as plain:
+        tex_s, launches, img = main_path(render, bt, rt, "rock100k_tex")
+    check(launches["nearest"] > 0 and launches["anyhit"] > 0,
+          f"rock100k_tex launched both single-pack kernels: {launches}")
+    check(launches["nearest_multi"] == 0 and launches["anyhit_multi"] == 0,
+          f"rock100k_tex launched no multi-pack kernel: {launches}")
+    check(not any(plain.values()), f"plain walks were called: {plain}")
+    gold = read_ppm(os.path.join(GOLDENS, "rock100k_tex_jax.ppm"))
+    frac = float((np.abs(img - gold) > 1).mean())
+    check(frac < 1e-4, f"rock100k_tex against the JAX frame: frac(|d|>1) "
+          f"= {frac}")
+    phase("main_path", scene="rock100k_tex", res=400, seconds=tex_s,
+          launches=launches, plain_walk_calls=plain, jax_frame_frac_gt1=frac)
+
+    rt.cameras[0] = dataclasses.replace(rt.cameras[0], nx=MS_RES, ny=MS_RES)
+    secs = frame_times(render, rt)
+    med = statistics.median(secs)
+    phase("frame_time", scene="rock100k_tex", res=MS_RES, spp=1,
+          median_s=med, samples_s=secs,
+          rock100k_median_s=rock_800_median_s, card=card)
+    rock = load_scene(os.path.join(SCENES, "rock100k.xml"), dev)
+    rock.cameras[0] = dataclasses.replace(rock.cameras[0], nx=MS_RES,
+                                          ny=MS_RES)
+    plain_prof = profile_frame(render, rock, rock_800_median_s, 0.0)
+    phase("profile", scene="rock100k", res=MS_RES, spp=1, **plain_prof,
+          card=card)
+    # the texture stage: every apply_textures call of one frame, recorded
+    # and then replayed under the profiler
+    calls = []
+    apply = whitted.apply_textures
+
+    def recorded(scene, det):
+        calls.append((scene, det))
+        return apply(scene, det)
+    whitted.apply_textures = recorded
+    try:
+        render.render_camera(rt, 0, ldr=True)
+    finally:
+        whitted.apply_textures = apply
+    check(len(calls) >= 2, f"{len(calls)} texture calls recorded")
+    tex_kernels, tex_ms, _ = profile_launches(
+        lambda: [apply(scene, det) for scene, det in calls])
+    prof = profile_frame(render, rt, med, 0.0)
+    phase("profile", scene="rock100k_tex", res=MS_RES, spp=1, **prof,
+          texture_calls=len(calls), texture_kernels=tex_kernels,
+          texture_kernel_ms=tex_ms,
+          texture_share_of_device=tex_ms / prof["kernel_ms"],
+          kernels_over_rock100k=prof["kernels_run"]
+          / plain_prof["kernels_run"], card=card)
+    return launches
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     # ---- 1. device ----
@@ -1121,12 +1227,14 @@ def main() -> int:
         phase("golden", scene=name, mean_abs=mean, frac_gt2=frac2)
 
     # ---- 5. times on this card ----
+    rock_median_s = {}
     for res in FRAME_RES:
         ld = load_scene(rock_xml, dev)
         ld.cameras[0] = dataclasses.replace(ld.cameras[0], nx=res, ny=res)
         secs = frame_times(render, ld)
+        rock_median_s[res] = statistics.median(secs)
         phase("frame_time", scene="rock100k", res=res, spp=1,
-              median_s=statistics.median(secs), samples_s=secs, card=card)
+              median_s=rock_median_s[res], samples_s=secs, card=card)
 
     dec = bt.decode(tb)
     timing = {
@@ -1296,9 +1404,12 @@ def main() -> int:
     analytic_phase(render, load_scene, dev)
     pt_launches, pt_err, pt_bad = rock_pt_phase(
         render, bt, intersect, load_scene, dev, card, per_draw, draw_s)
+    # ---- 16. textures, the environment light, image backgrounds ----
+    tex_launches = texture_phase(render, bt, intersect, load_scene, read_ppm,
+                                 dev, card, rock_median_s[MS_RES])
     for k in ("nearest", "anyhit"):
         launches[k] += (inst_launches[k] + ms_launches[k] + pt_launches[k]
-                        + big_launches[k])
+                        + big_launches[k] + tex_launches[k])
     err_by["nearest"] = max(err_by["nearest"], pt_err)
     err_by["anyhit"] = max(err_by["anyhit"], pt_bad)
 

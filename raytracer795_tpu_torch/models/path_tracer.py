@@ -37,7 +37,7 @@ from raytracer795_tpu_torch.models.whitted import (_conductor_fresnel,
                                                    _fresnel_dielectric,
                                                    _glossy_perturb, _refract)
 from raytracer795_tpu_torch.ops import intersect
-from raytracer795_tpu_torch.ops.texture import apply_textures, check_untextured
+from raytracer795_tpu_torch.ops.texture import apply_textures
 from raytracer795_tpu_torch.scene import types as T
 from raytracer795_tpu_torch.utils import rng
 from raytracer795_tpu_torch.utils.vec3 import (Vec3, cdiv, const_mat3_apply,
@@ -170,7 +170,6 @@ def _object_light_nee(scene: T.Scene, sp: ShadePoint, key: rng.Key) -> Vec3:
 def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
                 key: rng.Key) -> torch.Tensor:
     """Path-trace a batch of camera rays to radiance [N, 3]."""
-    check_untextured(scene)
     with torch.no_grad():
         return _bounces(scene, rays, bg_radiance, key).to_array()
 

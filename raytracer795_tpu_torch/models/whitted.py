@@ -39,7 +39,7 @@ import torch
 from raytracer795_tpu_torch.models.brdf import _mat3_rows
 from raytracer795_tpu_torch.models.lights import ShadePoint, direct_lighting
 from raytracer795_tpu_torch.ops import intersect
-from raytracer795_tpu_torch.ops.texture import apply_textures, check_untextured
+from raytracer795_tpu_torch.ops.texture import apply_textures
 from raytracer795_tpu_torch.scene import types as T
 from raytracer795_tpu_torch.utils import rng
 from raytracer795_tpu_torch.utils.vec3 import (Vec3, sqrt, vany_nan, vcross,
@@ -133,7 +133,6 @@ def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
     if differentiable:
         raise NotImplementedError(
             "gradients are not ported yet: ROADMAP queue 1 item 17")
-    check_untextured(scene)
     with torch.no_grad():
         return _render_machine(scene, rays, bg_radiance, key).to_array()
 

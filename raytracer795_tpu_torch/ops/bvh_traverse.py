@@ -266,6 +266,18 @@ def build_multi_tables(pack_bvhs, vertices: torch.Tensor,
         max_leaf=max(f.max_leaf for f in pack_bvhs))
 
 
+def table_nbytes(group: T.TraceGroup) -> int:
+    """Bytes of the tables ``build_tables`` or ``build_multi_tables``
+    makes for a BVH group, without building them: a 32-byte row a node and
+    a 48-byte row a triangle; a multi-pack group adds the K - 1 inner top
+    nodes and its [K, 2] int32 offsets."""
+    if group.bvh is not None:
+        return 32 * int(group.bvh.first.shape[0]) + 48 * group.n_tris
+    k = len(group.pack_bvhs)
+    nodes = sum(int(f.first.shape[0]) for f in group.pack_bvhs) + k - 1
+    return 32 * nodes + 8 * k + 48 * group.n_tris
+
+
 def decode_multi(mt: MultiTables) -> Tuple[Decoded, ...]:
     """The tables read back as one ``Decoded`` per pack, with pack-local
     links, each over the group's whole triangle table (its ``first`` is

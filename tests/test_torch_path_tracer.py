@@ -111,7 +111,8 @@ def test_nee_matches_numpy_integral(tmp_path):
     py = torch.tensor([60], dtype=torch.int32)
     rays = camera.sample_rays_at(cam, rng.PRNGKey(0), px, py, 0, spp)
     out = path_tracer.render_rays(ld.scene, rays,
-                                  _background_radiance(ld.scene, spp),
+                                  _background_radiance(ld.scene, cam, rays,
+                                                       px, py, spp),
                                   rng.PRNGKey(0))
     got = out.mean(0).numpy()
 

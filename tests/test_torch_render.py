@@ -135,10 +135,31 @@ def test_cli_refuses_cuda_without_a_device(monkeypatch, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-def _missing_background(tmp_path):
-    from raytracer795_tpu_torch.render import render_camera
+def _simple_variant(tmp_path, old, new):
+    """simple.xml at 8x8 with ``old`` replaced by ``new``."""
+    src = open(os.path.join(conftest.SCENES, "simple.xml")).read()
+    assert old in src
+    path = tmp_path / "variant.xml"
+    path.write_text(src.replace("200 200", "8 8").replace(old, new))
+    return str(path)
 
-    render_camera(_load("background"), 0)
+
+def _missing_tonemap(tmp_path):
+    from raytracer795_tpu_torch import render
+    from raytracer795_tpu_torch.scene.loader import load_scene
+
+    path = _simple_variant(tmp_path, "</ImageName>", "</ImageName>"
+                           "<Tonemap><TMOOptions>0.18 1</TMOOptions>"
+                           "</Tonemap>")
+    render.render_scene(load_scene(path, "cpu"), str(tmp_path))
+
+
+def _missing_exr_output(tmp_path):
+    from raytracer795_tpu_torch import render
+    from raytracer795_tpu_torch.scene.loader import load_scene
+
+    path = _simple_variant(tmp_path, "simple.png", "simple.exr")
+    render.render_scene(load_scene(path, "cpu"), str(tmp_path))
 
 
 def _missing_checkpoints(tmp_path):
@@ -157,23 +178,78 @@ def _missing_gradients(tmp_path):
     from raytracer795_tpu_torch.utils import rng
 
     ld = _load("simple")
+    cam = dataclasses.replace(ld.cameras[0], nx=8, ny=8)
     px, py = band_pixels(8, 8, "cpu")
-    whitted.render_rays(ld.scene, primary_rays_at(ld.cameras[0], px, py),
-                        _background_radiance(ld.scene, 64), rng.PRNGKey(0),
-                        differentiable=True)
+    rays = primary_rays_at(cam, px, py)
+    whitted.render_rays(ld.scene, rays,
+                        _background_radiance(ld.scene, cam, rays, px, py),
+                        rng.PRNGKey(0), differentiable=True)
 
 
 @pytest.mark.parametrize("run,item", [
-    (_missing_background, "item 11"),     # background texture
+    (_missing_tonemap, "item 16"),        # Tonemap camera
+    (_missing_exr_output, "item 16"),     # .exr ImageName
     (_missing_checkpoints, "item 16"),    # film checkpoint/resume
     (_missing_gradients, "item 17"),      # differentiable lane machine
 ])
 def test_unported_features_raise(run, item, tmp_path):
     """Features still missing from the port raise NotImplementedError
-    naming their ROADMAP item (textures and the env light are covered by
-    test_torch_scene.py::test_texture_and_env_scenes_raise)."""
+    naming their ROADMAP item."""
     with pytest.raises(NotImplementedError, match=item):
         run(tmp_path)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_scene_stats_sizes_the_traversal_tables(packed, tmp_path):
+    """``traverse_table_mb`` is the bytes of the tables the traversal
+    builds (bvh_traverse.build_tables / build_multi_tables), for rock6k
+    as one BVH and cut into 4 packs."""
+    from raytracer795_tpu_torch.ops import bvh_traverse as bt
+    from raytracer795_tpu_torch.render import scene_stats
+    from raytracer795_tpu_torch.scene.loader import load_scene
+
+    kw = dict(single_pack_max=2000, pack_tris=2048) if packed else {}
+    scene = load_scene(rock6k_xml(tmp_path), "cpu", **kw).scene
+    (g,) = scene.groups
+    if packed:
+        assert g.bvh is None and len(g.pack_bvhs) == 4
+        tables = bt.build_multi_tables(g.pack_bvhs, scene.vertices,
+                                       g.tri_vidx)
+        parts = (tables.nodes, tables.offsets, tables.tris)
+    else:
+        tables = bt.build_tables(g.bvh, scene.vertices, g.tri_vidx)
+        parts = (tables.nodes, tables.tris)
+    nbytes = sum(t.numel() * t.element_size() for t in parts)
+    assert scene_stats(scene)["traverse_table_mb"] == round(nbytes / 1e6, 2)
+
+
+@pytest.mark.parametrize("name", ["cornellbox_pt", "envlight"])
+def test_log_render_stats_rays_match_jax(name):
+    """The JSON line's ``rays_per_s`` and ``lights`` equal the JAX
+    package's for the same frame and seconds: no NEE object lights
+    (cornellbox_pt has one), the environment light counted (envlight)."""
+    import io
+    import json
+
+    from raytracer795_tpu import render as jax_render
+    from raytracer795_tpu.scene.loader import load_scene as jax_load
+
+    from raytracer795_tpu_torch import render
+
+    path = os.path.join(conftest.SCENES, name + ".xml")
+    jl = jax_load(path)
+    ld = _load(name)
+    lines = []
+    for log, loaded in ((jax_render.log_render_stats, jl),
+                        (render.log_render_stats, ld)):
+        buf = io.StringIO()
+        log(loaded.scene, loaded.cameras[0], 1.7, stream=buf)
+        lines.append(json.loads(buf.getvalue()))
+    want, got = lines
+    assert got["rays_per_s"] == want["rays_per_s"]
+    assert got["lights"] == want["lights"] == (1 if name == "envlight" else 0)
+    assert got["gross_rays_per_s"] == render.gross_rays(
+        ld.scene, ld.cameras[0]) / 1.7
 
 
 @pytest.mark.parametrize("nx,n_rows", [(400, 400), (800, 320), (800, 160),

@@ -63,7 +63,8 @@ def assert_same(a, b, path="scene"):
     ("lights", 1024), ("transforms", 1024), ("instances", 1024),
     ("instances", 2), ("rock6k", 1024), ("cornellbox_pt", 1024),
     ("furnace", 1024), ("arealight", 1024), ("motionblur", 1024),
-    ("distributed", 1024), ("rock100k_pt", 1024)])
+    ("distributed", 1024), ("rock100k_pt", 1024), ("textures", 1024),
+    ("background", 1024), ("ply_smooth", 1024), ("envlight", 1024)])
 def test_loader_matches_jax_loader(name, bvh_min_tris, tmp_path):
     from raytracer795_tpu.scene.loader import load_scene as jax_load
 
@@ -90,6 +91,11 @@ def test_loader_matches_jax_loader(name, bvh_min_tris, tmp_path):
         assert sc.renderer == "pathtracing" and sc.pt_nee and sc.pt_importance
         assert sc.pt_rr == (name == "rock100k_pt")
         assert len(sc.sphere_lights) + len(sc.mesh_lights) == 1
+    if name == "envlight":
+        # the env light wraps its own bilinear texture of sky.exr
+        sc = port.scene
+        assert sc.env_texture == 0 and sc.textures[0].image.shape == \
+            (64, 128, 3)
 
 
 def test_instances_share_one_bvh():
@@ -104,10 +110,11 @@ def test_instances_share_one_bvh():
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Rendering through the port leaves jax and the JAX package unloaded,
-    for a brute-force scene, a multi-packed rock6k, and multi-sample
+    """Rendering through the port leaves jax, the JAX package and PIL
+    unloaded, for a brute-force scene, a multi-packed rock6k, multi-sample
     frames of the path tracer and of a depth-of-field, glossy scene (the
-    RNG, sample rays and path tracer modules)."""
+    RNG, sample rays and path tracer modules), the textured scene with its
+    PNG and JPEG images, and the EXR environment light."""
     code = f"""
 import sys
 import numpy as np
@@ -128,8 +135,13 @@ for name in ("cornellbox_pt", "distributed"):     # path tracer; DoF, glossy
     ld.cameras[0].nx = ld.cameras[0].ny = 8
     img = render.render_camera(ld, 0, seed=1, spp=2)
     assert img.shape == (8, 8, 3) and img.max() > 0
+for name in ("textures", "envlight"):          # images; env light, spp 16
+    ld = rt.load_scene({conftest.SCENES!r} + "/" + name + ".xml", "cpu")
+    ld.cameras[0].nx = ld.cameras[0].ny = 8
+    img = render.render_camera(ld, 0, ldr=True)
+    assert img.shape == (8, 8, 3) and img.max() > 0
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "raytracer795_tpu")]
+       if m.split(".")[0] in ("jax", "jaxlib", "raytracer795_tpu", "PIL")]
 assert not bad, bad
 print("ok")
 """
@@ -139,15 +151,3 @@ print("ok")
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
-
-
-def test_texture_and_env_scenes_raise():
-    """Features outside the slice raise NotImplementedError, not render."""
-    from raytracer795_tpu_torch.render import render_camera
-    from raytracer795_tpu_torch.scene.loader import load_scene
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_scene(os.path.join(conftest.SCENES, "envlight.xml"), "cpu")
-    ld = load_scene(os.path.join(conftest.SCENES, "textures.xml"), "cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        render_camera(ld, 0)
