@@ -100,9 +100,27 @@ non-zero and prints no result:
    traversal kernels' ms) and the texture stage's device ms and kernels
    (every ``apply_textures`` call of the frame, replayed under the
    profiler).
+17. gradients: the differentiable rock100k frame (400x400, autograd on,
+   iterations checkpointed) equals the forward frame bit for bit through
+   the same kernels; one ``train_step_with_grads`` each of rock100k,
+   rock100k_pt and rock1800k (phase 6's loaded scene) at 400x400 and 1 spp
+   on every differentiable parameter, toward 0.9 x the scene's own frame:
+   loss, max |g| of each family, every gradient finite, the families the
+   scene drives nonzero, the traversal launches split at
+   ``torch.autograd.grad`` into the forward and the backward pass (both
+   > 0, no plain walk, rock1800k multi-pack only), its triangle rows free
+   of a graph; the median forward frame and step (3 after a warm-up), a
+   profiled step (kernels, host launches, device ms, the costliest
+   kernels) and the step's ``max_memory_allocated``. Three rock100k steps
+   with tests/test_parallel.py's rates and three vertex-only steps must
+   descend; ply_smooth's vertex gradient (``bvh_min_tris=1``, 24x24,
+   tests/test_tpu.py:75-128) through the kernels must equal the CPU port's
+   through the plain walks at rtol 2e-3, atol 2e-3 max|g|, and two card
+   runs' difference is printed.
 
 The ``kernels`` line's launch counts are summed over the main paths that
-run each kernel (phases 4, 7, 8, 11, 15 and 16, each counted from 0). The
+run each kernel (phases 4, 7, 8, 11, 15 and 16, and phase 17's three train
+steps, forward and backward, each counted from 0). The
 last three lines are the card, the kernels' JSON record and the result line;
 the wall time is printed on an earlier line. It imports nothing of jax or
 of the JAX package.
@@ -191,6 +209,17 @@ BEFORE_MS = {("nearest", "rock100k primary"): 0.934,
              ("anyhit_multi", "rock1800k first shadow"): 5.961}
 RAGGED_N = (0, 1, 31, 33, 129)
 EDGE_RAYS = 131072          # rays of the moved-vertex and axis-aligned cases
+GRAD_RES = 400              # the train steps' frames: one band, 1 spp
+GRAD_REPS = 3               # timed forward frames and steps after a warm-up
+# tests/test_parallel.py:112-113's per-parameter rates
+TRAIN_LRS = {"diffuse": 1e-4, "specular": 1e-4, "ambient": 1e-4,
+             "mirror": 1e-4, "point_intensity": 1e-1}
+# the vertex-only steps' size: a first-order loss decrease of this share
+# of the loss (tests/test_tpu.py:130-139's fixed 2e-4 is sized for 24x24)
+VERTEX_STEP_DECREASE = 1e-3
+# the host's kernel launch calls, as the profiler names them
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
 
 
 def check(cond, msg):
@@ -1146,6 +1175,325 @@ def texture_phase(render, bt, intersect, load_scene, read_ppm, dev, card,
     return launches
 
 
+def grad_inputs(render, loaded, res=None):
+    """The render path's center-of-pixel rays of one res x res band
+    (``GRAD_RES`` by default), their background and key 0: (rays,
+    background, key)."""
+    from raytracer795_tpu_torch.models import camera
+    from raytracer795_tpu_torch.utils import rng
+
+    res = res or GRAD_RES
+    scene = loaded.scene
+    cam = dataclasses.replace(loaded.cameras[0], nx=res, ny=res)
+    check(render.band_rows(cam) == res, f"{res}x{res} is one band")
+    px, py = camera.band_pixels(res, res, scene.device)
+    rays = camera.primary_rays_at(cam, px, py)
+    return (rays, render._background_radiance(scene, cam, rays, px, py),
+            rng.PRNGKey(0))
+
+
+def param_leaves(tree):
+    """Every tensor of a parameter dict (a tensor or a tuple a name)."""
+    return [x for v in tree.values()
+            for x in (v if isinstance(v, tuple) else (v,))]
+
+
+def leaf_scene(par, scene):
+    """``scene`` with every differentiable parameter a fresh leaf that
+    requires grad."""
+    return par.scene_with_params(scene, {
+        k: (tuple(x.detach().requires_grad_() for x in v)
+            if isinstance(v, tuple) else v.detach().requires_grad_())
+        for k, v in par.differentiable_params(scene).items()})
+
+
+@contextlib.contextmanager
+def launch_split(bt):
+    """Kernel launches of the forward pass and of the backward pass of the
+    one ``torch.autograd.grad`` call inside (a train step's): the counters
+    are reset on entry and read where the backward pass starts and ends."""
+    grad = torch.autograd.grad
+    split = {}
+
+    def timed_grad(*args, **kw):
+        split["forward"] = dict(bt.LAUNCHES)
+        out = grad(*args, **kw)
+        split["backward"] = {k: n - split["forward"][k]
+                             for k, n in bt.LAUNCHES.items()}
+        return out
+    bt.reset_launch_counts()
+    torch.autograd.grad = timed_grad
+    try:
+        yield split
+    finally:
+        torch.autograd.grad = grad
+
+
+def family_max(grads):
+    """max |g| of each gradient family (0 for an empty one)."""
+    return {k: max((float(g.abs().max()) for g in param_leaves({k: v})
+                    if g.numel()), default=0.0) for k, v in grads.items()}
+
+
+def all_finite(tree) -> bool:
+    return all(bool(torch.isfinite(x).all()) for x in param_leaves(tree))
+
+
+def train_cell(render, bt, intersect, par, loaded, name):
+    """One ``train_step_with_grads`` of ``loaded`` at 400x400 on every
+    differentiable parameter toward 0.9 x its own frame (key 0), the plain
+    walks counted and the launches split at the backward pass; the Whitted
+    trip count is measured once before. Returns (record, gradients, step,
+    forward, loss_of)."""
+    from raytracer795_tpu_torch.utils import rng
+
+    scene = loaded.scene
+    rays, bg, key = grad_inputs(render, loaded)
+    integrate = render._integrator(scene)
+
+    def forward(sc=scene):
+        with torch.no_grad():
+            return integrate(sc, rays, bg, rng.fold_in(key, 0))
+    target = 0.9 * forward()
+    iters = par.resolve_whitted_iters(scene, rays, bg, key)
+
+    def step(sc=scene, lr=0.0):
+        return par.train_step_with_grads(sc, rays, bg, target, key, lr=lr,
+                                         whitted_iters=iters)
+
+    def loss_of(sc):
+        return float(torch.mean((forward(sc) - target) ** 2))
+    with counting(intersect, PLAIN_WALKS) as plain, \
+            launch_split(bt) as split:
+        loss, grads, _ = step()
+    check(not any(plain.values()), f"{name}: plain walks ran: {plain}")
+    check(all_finite(grads), f"{name}: a gradient is not finite")
+    check(np.isfinite(float(loss)) and float(loss) > 0, f"{name}: loss")
+    rec = {"loss": float(loss), "whitted_iters": iters,
+           "max_abs_grad": family_max(grads),
+           "launches_forward": split["forward"],
+           "launches_backward": split["backward"],
+           "plain_walk_calls": plain}
+    return rec, grads, step, forward, loss_of
+
+
+def profile_step(fn):
+    """Kernels ``fn()`` runs on the card and their device ms, with the
+    host's kernel launch calls counted beside them (torch.profiler tracing
+    the host and the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    by_name = {e.key: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)) / 1e3
+               for e in kernels}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"kernels_run": sum(e.count for e in kernels),
+            "host_launches": sum(e.count for e in events
+                                 if e.key in HOST_LAUNCHES),
+            "kernel_ms": sum(by_name.values()),
+            "bvh_kernel_ms": bvh_kernel_ms(by_name),
+            "top_kernels_ms": {k[:90]: ms for k, ms in top}}
+
+
+def host_seconds(fn, reps=GRAD_REPS):
+    """Host seconds of ``reps`` calls of ``fn`` after a warm-up, each
+    ending in a synchronize."""
+    fn()
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def train_times(step, forward, card):
+    """The median forward frame and train step (``GRAD_REPS`` after a
+    warm-up), their ratio, one profiled step, and the step's peak
+    memory."""
+    fwd, stp = host_seconds(forward), host_seconds(step)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    fmed, smed = statistics.median(fwd), statistics.median(stp)
+    return {"forward_median_s": fmed, "forward_s": fwd,
+            "step_median_s": smed, "step_s": stp,
+            "step_over_forward": smed / fmed,
+            "memory_before_step_mb": base / 2**20,
+            "max_memory_allocated_mb": peak / 2**20,
+            "step_profile": profile_step(step), "card": card}
+
+
+def descend(step, loss_of, scene, lr, name):
+    """Three steps at rate ``lr`` from ``scene``: every gradient and
+    parameter finite, and the loss after them below the loss before.
+    Returns the losses, before and after each step."""
+    from raytracer795_tpu_torch.parallel import shard as par
+
+    losses, cur = [loss_of(scene)], scene
+    for _ in range(3):
+        _, grads, cur = step(cur, lr)
+        check(all_finite(grads) and all_finite(par.differentiable_params(cur)),
+              f"{name}: a gradient or parameter is not finite")
+        losses.append(loss_of(cur))
+    check(losses[-1] < losses[0], f"{name}: the loss did not descend: "
+          f"{losses}")
+    return losses
+
+
+def card_vs_cpu(render, bt, intersect, load_scene, dev):
+    """tests/test_tpu.py:75-128 on the card: ply_smooth loaded with
+    ``bvh_min_tris=1`` at 24x24, the vertex gradient of mean((img -
+    0.9 img0)^2) through the single-pack kernels (twice) and through the
+    CPU port's plain walks."""
+    from raytracer795_tpu_torch.models import whitted
+    from raytracer795_tpu_torch.parallel import shard as par
+
+    runs = []
+    for device in (dev, dev, torch.device("cpu")):
+        ld = load_scene(os.path.join(SCENES, "ply_smooth.xml"), device,
+                        bvh_min_tris=1)
+        check(all(g.bvh is not None for g in ld.scene.groups if g.n_tris),
+              "ply_smooth's meshes are BVH groups")
+        rays, bg, key = grad_inputs(render, ld, 24)
+        iters = whitted.forward_iteration_count(ld.scene, rays, bg, key) + 1
+        with torch.no_grad():
+            target = 0.9 * whitted.render_rays(ld.scene, rays, bg, key)
+        bt.reset_launch_counts()
+        with counting(intersect, PLAIN_WALKS) as plain:
+            _, grads, _ = par.train_step_with_grads(
+                ld.scene, rays, bg, target, key, lr=0.0,
+                whitted_iters=iters)
+        runs.append((grads["vertices"].cpu(), dict(bt.LAUNCHES), plain))
+    (g1, launches, plain), (g2, _, _), (g_cpu, cpu_launches, _) = runs
+    check(launches["nearest"] > 0 and launches["anyhit"] > 0
+          and not any(plain.values()),
+          f"the card's step ran the kernels: {launches}, plain {plain}")
+    check(not any(cpu_launches.values()), "the CPU step launched nothing")
+    scale = float(g_cpu.abs().max())
+    check(scale > 0 and bool(torch.isfinite(g1).all()),
+          "a finite, nonzero vertex gradient")
+    err = float((g1 - g_cpu).abs().max())
+    bad = int((~torch.isclose(g1, g_cpu, rtol=2e-3, atol=2e-3 * scale)).sum())
+    check(bad == 0, f"{bad} card vertex gradients differ from the CPU's "
+          f"(max |d| {err}, max |g| {scale})")
+    phase("grad_card_vs_cpu", scene="ply_smooth", res=24,
+          vertices=int(g1.shape[0]), max_abs_grad=scale,
+          max_abs_diff_card_cpu=err,
+          max_abs_diff_card_card=float((g1 - g2).abs().max()),
+          card_launches=launches, tolerance="rtol 2e-3, atol 2e-3 max|g|")
+
+
+def gradient_phase(render, bt, intersect, load_scene, dev, card, rock, big):
+    """Phase 17; returns the traversal launches of the three train steps
+    (forward and backward passes summed)."""
+    from raytracer795_tpu_torch.models import whitted
+    from raytracer795_tpu_torch.parallel import shard as par
+
+    # the differentiable frame equals the forward frame, bit for bit
+    scene = rock.scene
+    rays, bg, key = grad_inputs(render, rock)
+    want = whitted.render_rays(scene, rays, bg, key)
+    iters = whitted.forward_iteration_count(scene, rays, bg, key)
+    bt.reset_launch_counts()
+    got = whitted.render_rays(leaf_scene(par, scene), rays, bg, key,
+                              differentiable=True, max_iters=iters + 2)
+    torch.cuda.synchronize()
+    fwd_launches = dict(bt.LAUNCHES)
+    check(got.requires_grad, "the differentiable frame has a graph")
+    differ = int((got.detach() != want).sum())
+    check(differ == 0 and fwd_launches["nearest"] > 0,
+          f"{differ} values of the differentiable rock100k frame differ")
+    # the card's vertex normals (a sorted accumulating index_put) against
+    # the CPU's (index_add, in triangle order): printed, not checked
+    cpu_rock = load_scene(os.path.join(SCENES, "rock100k.xml"), "cpu")
+    vn = intersect.compute_vertex_normals(scene).cpu()
+    vn_cpu = intersect.compute_vertex_normals(cpu_rock.scene)
+    phase("grad_forward", scene="rock100k", res=GRAD_RES, iterations=iters,
+          values_differing=differ, launches=fwd_launches,
+          vertex_normals_equal_cpu=bool(torch.equal(vn, vn_cpu)),
+          vertex_normals_max_abs_diff_cpu=float((vn - vn_cpu).abs().max()))
+    del got
+
+    total = dict.fromkeys(bt.LAUNCHES, 0)
+
+    def add(rec):
+        for part in ("launches_forward", "launches_backward"):
+            for k, n in rec[part].items():
+                total[k] += n
+
+    # rock100k: every parameter, then the lr dict and vertex-only descents
+    rec, grads, step, forward, loss_of = train_cell(render, bt, intersect,
+                                                    par, rock, "rock100k")
+    for name in ("vertices", "diffuse", "point_intensity"):
+        check(rec["max_abs_grad"][name] > 0, f"rock100k {name} gradient 0")
+    for part in ("launches_forward", "launches_backward"):
+        check(rec[part]["nearest"] > 0 and rec[part]["anyhit"] > 0,
+              f"rock100k {part}: {rec[part]}")
+    add(rec)
+    phase("train_step", scene="rock100k", res=GRAD_RES, **rec,
+          **train_times(step, forward, card))
+    losses = descend(step, loss_of, scene, TRAIN_LRS, "rock100k lr dict")
+    phase("train_descent", scene="rock100k", lr=TRAIN_LRS, losses=losses)
+    gv = grads["vertices"]
+    lr_v = VERTEX_STEP_DECREASE * rec["loss"] / float(torch.sum(gv * gv))
+    losses = descend(step, loss_of, scene, {"vertices": lr_v},
+                     "rock100k vertices")
+    phase("train_descent", scene="rock100k", lr={"vertices": lr_v},
+          losses=losses)
+
+    card_vs_cpu(render, bt, intersect, load_scene, dev)
+
+    # rock100k_pt: the path tracer's step
+    pt = load_scene(os.path.join(SCENES, "rock100k_pt.xml"), dev)
+    rec, grads, step, forward, _ = train_cell(render, bt, intersect, par, pt,
+                                              "rock100k_pt")
+    for name in ("diffuse", "sphere_light_radiance", "vertices"):
+        check(rec["max_abs_grad"][name] > 0, f"rock100k_pt {name} gradient 0")
+    for part in ("launches_forward", "launches_backward"):
+        check(rec[part]["nearest"] > 0 and rec[part]["anyhit"] > 0,
+              f"rock100k_pt {part}: {rec[part]}")
+    add(rec)
+    phase("train_step", scene="rock100k_pt", res=GRAD_RES, spp=1, **rec,
+          **train_times(step, forward, card))
+    del pt, grads, step, forward
+
+    # rock1800k: the multi-pack kernels, phase 6's loaded scene
+    (bgroup,) = big.scene.groups
+    live = big.scene.vertices.detach().requires_grad_()
+    rows = bt.build_multi_tables(bgroup.pack_bvhs, live, bgroup.tri_vidx).tris
+    check(not rows.requires_grad and rows.grad_fn is None,
+          "rock1800k's triangle rows hold no graph")
+    rec, grads, step, forward, _ = train_cell(render, bt, intersect, par, big,
+                                              "rock1800k")
+    check(grads["vertices"].shape == big.scene.vertices.shape
+          and rec["max_abs_grad"]["vertices"] > 0,
+          "rock1800k's vertex gradient")
+    for part in ("launches_forward", "launches_backward"):
+        check(rec[part]["nearest_multi"] > 0 and rec[part]["anyhit_multi"] > 0
+              and rec[part]["nearest"] == 0 and rec[part]["anyhit"] == 0,
+              f"rock1800k {part}: {rec[part]}")
+    add(rec)
+    phase("train_step", scene="rock1800k", res=GRAD_RES, **rec,
+          table_rows_require_grad=False,
+          **train_times(step, forward, card))
+    return total
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     # ---- 1. device ----
@@ -1407,9 +1755,14 @@ def main() -> int:
     # ---- 16. textures, the environment light, image backgrounds ----
     tex_launches = texture_phase(render, bt, intersect, load_scene, read_ppm,
                                  dev, card, rock_median_s[MS_RES])
+    # ---- 17. gradients and the train step ----
+    grad_launches = gradient_phase(render, bt, intersect, load_scene, dev,
+                                   card, loaded, big)
     for k in ("nearest", "anyhit"):
         launches[k] += (inst_launches[k] + ms_launches[k] + pt_launches[k]
                         + big_launches[k] + tex_launches[k])
+    for k in REPLACES:
+        launches[k] += grad_launches[k]
     err_by["nearest"] = max(err_by["nearest"], pt_err)
     err_by["anyhit"] = max(err_by["anyhit"], pt_bad)
 

@@ -89,7 +89,9 @@ def shadow_rays(scene: T.Scene, sp: ShadePoint, direction: Vec3,
     t < t_cap for t_cap = -eps*c + sqrt(eps^2*(c^2 - 1) + d_light^2),
     c = n.d, solved exactly. ``d_light=None`` (directional): any hit
     occludes. Lanes without a shade point get a zero direction, which
-    retires them at kernel entry.
+    retires them at kernel entry. Rays and caps carry no gradient (the JAX
+    package stops it at c and d_light^2): they feed only the discrete
+    occlusion answer, never the shaded radiance.
     """
     eps = scene.shadow_eps
     with torch.no_grad():

@@ -13,7 +13,10 @@ what they replace and what bounds them):
 
 Each wrapper takes the kernel path for CUDA tensors and the plain walk of
 ops/intersect.py for CPU tensors, and for nothing else: a CUDA tensor
-launches the kernel or raises. The plain walks read the same tables,
+launches the kernel or raises. No kernel has a backward: as in the JAX
+package, whose walk never reaches the AD tape, the queries run without
+autograd and the tables hold no graph; gradients reach the geometry
+through ``intersect.hit_details``. The plain walks read the same tables,
 decoded (``decode``, ``decode_multi``), and are what the kernels are held
 to. ``walk_work`` is the plain walk with counters: the work behind the
 kernels' bounds. ``walk_two_level`` is the multi-pack kernels' own walk
@@ -126,7 +129,11 @@ def _node_rows(bmin, bmax, link, count) -> torch.Tensor:
 
 
 def _tri_rows(vertices: torch.Tensor, tri_vidx: torch.Tensor) -> torch.Tensor:
-    a, e1, e2, ng = intersect.tri_components(vertices, tri_vidx)
+    """The triangle rows of the live vertices, off the autograd tape: the
+    walk never carries a gradient (``intersect.hit_details`` recomputes the
+    winner's geometry on the tape), so the rows hold no graph even when
+    ``vertices`` requires grad."""
+    a, e1, e2, ng = intersect.tri_components(vertices.detach(), tri_vidx)
     return torch.stack([*a, *e1, *e2, *ng], dim=1)
 
 

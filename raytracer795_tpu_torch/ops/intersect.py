@@ -612,7 +612,12 @@ def compute_vertex_normals(scene: T.Scene) -> torch.Tensor:
 
     Scene::renderScene's vertex-normal pass (src/Scene.cpp:302-318,
     src/Shape.cpp:262-276): per smooth triangle add normalize((c-b)x(a-b))
-    to its three vertices, then normalize per vertex.
+    to its three vertices, then normalize per vertex. On the tape, so
+    vertex gradients reach the shading normals. Each vertex adds its
+    triangles in triangle order, so a frame is the same bits every time:
+    ``index_add`` does so on the CPU, but adds with atomics on CUDA, where
+    an accumulating ``index_put`` sorts instead (and on the CPU, with
+    several threads, it does not keep the order).
     """
     verts = scene.vertices
     acc = torch.zeros_like(verts)
@@ -631,7 +636,10 @@ def compute_vertex_normals(scene: T.Scene) -> torch.Tensor:
         w = (group.tri_smooth & (sq[:, 0] > 0)).to(verts.dtype)[:, None]
         n = n * w
         for k in range(3):
-            acc = acc.index_add(0, vidx[:, k], n)
+            if verts.device.type == "cuda":
+                acc = acc.index_put((vidx[:, k],), n, accumulate=True)
+            else:
+                acc = acc.index_add(0, vidx[:, k], n)
     sq = (acc[:, 0] * acc[:, 0] + acc[:, 1] * acc[:, 1]
           + acc[:, 2] * acc[:, 2])[:, None]
     return acc / sqrt(torch.where(sq > 0, sq, 1.0))

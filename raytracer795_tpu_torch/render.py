@@ -12,6 +12,11 @@ again with the band's first row when the band is narrower than the frame,
 and the band's film accumulates ``mean * s`` on the device, as the JAX
 package does, so a frame equals the JAX render of the same seed.
 
+Frames build no autograd graph: ``render_band`` and
+``render_sample_range`` run under ``torch.no_grad()``, while the
+integrators themselves are differentiable (``parallel/shard.py`` takes
+their gradients).
+
 CLI::
 
     python -m raytracer795_tpu_torch.render scene.xml [-o OUTDIR]
@@ -94,6 +99,7 @@ def _background_radiance(scene: T.Scene, cam: T.Camera,
     return Vec3(bg[0].expand(n), bg[1].expand(n), bg[2].expand(n))
 
 
+@torch.no_grad()
 def render_band(scene: T.Scene, cam: T.Camera, px: torch.Tensor,
                 py: torch.Tensor, key: rng.Key) -> torch.Tensor:
     """Radiance [N, 3] of per-lane frame pixels (px, py): center-of-pixel
@@ -103,6 +109,7 @@ def render_band(scene: T.Scene, cam: T.Camera, px: torch.Tensor,
     return _integrator(scene)(scene, rays, bg, key)
 
 
+@torch.no_grad()
 def render_sample_range(scene: T.Scene, cam: T.Camera, key: rng.Key,
                         base: int, count: int, row0: int, rows: int,
                         px: torch.Tensor, py_rel: torch.Tensor

@@ -170,27 +170,10 @@ def _missing_checkpoints(tmp_path):
                  str(tmp_path / "ckpt")])
 
 
-def _missing_gradients(tmp_path):
-    from raytracer795_tpu_torch.models import whitted
-    from raytracer795_tpu_torch.models.camera import (band_pixels,
-                                                      primary_rays_at)
-    from raytracer795_tpu_torch.render import _background_radiance
-    from raytracer795_tpu_torch.utils import rng
-
-    ld = _load("simple")
-    cam = dataclasses.replace(ld.cameras[0], nx=8, ny=8)
-    px, py = band_pixels(8, 8, "cpu")
-    rays = primary_rays_at(cam, px, py)
-    whitted.render_rays(ld.scene, rays,
-                        _background_radiance(ld.scene, cam, rays, px, py),
-                        rng.PRNGKey(0), differentiable=True)
-
-
 @pytest.mark.parametrize("run,item", [
     (_missing_tonemap, "item 16"),        # Tonemap camera
     (_missing_exr_output, "item 16"),     # .exr ImageName
     (_missing_checkpoints, "item 16"),    # film checkpoint/resume
-    (_missing_gradients, "item 17"),      # differentiable lane machine
 ])
 def test_unported_features_raise(run, item, tmp_path):
     """Features still missing from the port raise NotImplementedError

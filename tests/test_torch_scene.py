@@ -114,7 +114,7 @@ def test_port_never_imports_jax(tmp_path):
     unloaded, for a brute-force scene, a multi-packed rock6k, multi-sample
     frames of the path tracer and of a depth-of-field, glossy scene (the
     RNG, sample rays and path tracer modules), the textured scene with its
-    PNG and JPEG images, and the EXR environment light."""
+    PNG and JPEG images, the EXR environment light, and a train step."""
     code = f"""
 import sys
 import numpy as np
@@ -140,6 +140,18 @@ for name in ("textures", "envlight"):          # images; env light, spp 16
     ld.cameras[0].nx = ld.cameras[0].ny = 8
     img = render.render_camera(ld, 0, ldr=True)
     assert img.shape == (8, 8, 3) and img.max() > 0
+import torch                                      # a train step
+from raytracer795_tpu_torch.models import camera
+from raytracer795_tpu_torch.parallel import shard
+ld = rt.load_scene({conftest.SCENES!r} + "/cornellbox.xml", "cpu")
+cam = ld.cameras[0]
+cam.nx = cam.ny = 8
+px, py = camera.band_pixels(8, 8, "cpu")
+rays = camera.primary_rays_at(cam, px, py)
+bg = render._background_radiance(ld.scene, cam, rays, px, py)
+loss, grads, _ = shard.train_step_with_grads(
+    ld.scene, rays, bg, torch.zeros((64, 3)), (0, 0))
+assert bool(torch.isfinite(grads["vertices"]).all()) and float(loss) > 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "raytracer795_tpu", "PIL")]
 assert not bad, bad
