@@ -134,6 +134,7 @@ import importlib.util
 import json
 import os
 import re
+import signal
 import statistics
 import struct
 import subprocess
@@ -1494,6 +1495,288 @@ def gradient_phase(render, bt, intersect, load_scene, dev, card, rock, big):
     return total
 
 
+def bits_equal(a, b) -> bool:
+    """Whether two float32 arrays (host or card) hold the same bits."""
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and bool(torch.equal(
+            a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                 b.view(np.uint32))
+
+
+def add_launches(total, bt):
+    for k, n in bt.LAUNCHES.items():
+        total[k] += n
+
+
+def kill_and_resume(render, bt, ld, spp, abort_after, total):
+    """Phase 18 (a): render ``ld`` whole, then with a checkpoint saved
+    every band killed after ``abort_after`` saves, then resumed; the
+    resumed float film must equal the whole one bit for bit, having
+    launched fewer nearest kernels, and more than none."""
+    cam = render.with_spp(ld.cameras[0], spp)
+    bands = -(-cam.ny // render.band_rows(cam))
+    bt.reset_launch_counts()
+    whole = render.render_camera(ld, 0, spp=spp)
+    whole_launches = dict(bt.LAUNCHES)
+    path = os.path.join(OUT, "ckpt", f"rock100k_{spp}spp.ckpt.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    try:
+        render.render_camera(ld, 0, spp=spp, checkpoint=render.FilmCheckpoint(
+            path, every_s=0.0), _abort_after_saves=abort_after)
+        check(False, "the render was not killed")
+    except KeyboardInterrupt:
+        pass
+    check(os.path.exists(path) and os.path.exists(path + ".preview.png"),
+          "the killed render left its checkpoint and preview")
+    row0 = int(np.load(path)["row0"])
+    bt.reset_launch_counts()
+    resumed = render.render_camera(
+        ld, 0, spp=spp, checkpoint=render.FilmCheckpoint(path, every_s=0.0))
+    resumed_launches = dict(bt.LAUNCHES)
+    add_launches(total, bt)
+    check(bits_equal(resumed, whole),
+          f"the resumed {spp}-spp film differs from the whole one")
+    check(0 < resumed_launches["nearest"] < whole_launches["nearest"],
+          f"resumed launches {resumed_launches} against {whole_launches}")
+    phase("checkpoint_resume", scene="rock100k", res=cam.nx, spp=spp,
+          bands=bands, killed_after_saves=abort_after, resumed_from_row=row0,
+          launches_whole=whole_launches, launches_resumed=resumed_launches,
+          resumed_equals_whole=True)
+    return path, bands
+
+
+def cli_variant_xml() -> str:
+    """rock100k at 400x400 with two cameras under build/chip_smoke: camera
+    1 with a <Tonemap> writing a PNG, camera 2 (moved) writing an EXR."""
+    src = open(os.path.join(SCENES, "rock100k.xml")).read()
+    cam = src[src.index('        <Camera id="1">'):src.index("    </Cameras>")]
+    second = (cam.replace('id="1"', 'id="2"')
+              .replace("<Position>0 1.0 3.2</Position>",
+                       "<Position>1.6 1.2 2.8</Position>")
+              .replace("<Gaze>0 -0.28 -1</Gaze>", "<Gaze>-0.5 -0.3 -0.8</Gaze>")
+              .replace("rock100k.png", "rock100k_hdr.exr"))
+    src = src.replace("    </Cameras>", second + "    </Cameras>")
+    src = src.replace("<ImageName>rock100k.png</ImageName>",
+                      "<ImageName>rock100k_tm.png</ImageName><Tonemap>"
+                      "<TMOOptions>0.18 1</TMOOptions><Saturation>1.0"
+                      "</Saturation><Gamma>2.2</Gamma></Tonemap>", 1)
+    src = src.replace('plyFile="rock100k.ply"', 'plyFile="%s"' % os.path.join(
+        SCENES, "rock100k.ply"))
+    path = os.path.join(OUT, "rock100k_cli.xml")
+    with open(path, "w") as f:
+        f.write(src)
+    return path
+
+
+def cli_phase(render, bt, load_scene, dev, total):
+    """Phase 18 (b): ``render.main`` with ``--checkpoint-dir`` on the
+    two-camera rock100k variant; the tonemapped PNG and the EXR must be the
+    bytes of ``render_camera``'s float films written by the port's own
+    writers, and the same command again launches nothing and writes the
+    same bytes."""
+    from raytracer795_tpu_torch.utils import exr, image_io
+    from raytracer795_tpu_torch.utils.tonemap import reinhard_global
+
+    xml = cli_variant_xml()
+    out = os.path.join(OUT, "cli")
+    ckpt = os.path.join(OUT, "cli_ckpt")
+    for d in (out, ckpt):
+        if os.path.isdir(d):
+            for name in os.listdir(d):
+                os.remove(os.path.join(d, name))
+    argv = [xml, "-o", out, "--device", "cuda", "--checkpoint-dir", ckpt]
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    render.main(argv)
+    first_s = time.perf_counter() - t0
+    launches = dict(bt.LAUNCHES)
+    add_launches(total, bt)
+    check(launches["nearest"] > 0 and launches["anyhit"] > 0,
+          f"the CLI launched both single-pack kernels: {launches}")
+    ld = load_scene(xml, dev)
+    check(ld.cameras[0].tonemap == (0.18, 1.0, 1.0, 2.2), "the Tonemap")
+    png, hdr = (os.path.join(out, n) for n in ("rock100k_tm.png",
+                                               "rock100k_hdr.exr"))
+    film = render.render_camera(ld, 0)
+    want_png = image_io.png_bytes(image_io.to_ldr(
+        reinhard_global(film, 0.18, 1.0, 1.0, 2.2)))
+    with open(png, "rb") as f:
+        png_bytes = f.read()
+    check(png_bytes == want_png, "the tonemapped PNG's bytes")
+    ref = os.path.join(OUT, "rock100k_hdr_ref.exr")
+    exr.write_exr(ref, render.render_camera(ld, 1))
+    with open(hdr, "rb") as f, open(ref, "rb") as g:
+        hdr_bytes = f.read()
+        check(hdr_bytes == g.read(), "the EXR's bytes")
+    check(np.array_equal(exr.read_exr(hdr).astype(np.float16),
+                         render.render_camera(ld, 1).astype(np.float16)),
+          "the EXR read back")
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    render.main(argv)
+    again_s = time.perf_counter() - t0
+    again = dict(bt.LAUNCHES)
+    check(not any(again.values()), f"the rerun launched {again}")
+    with open(png, "rb") as f, open(hdr, "rb") as g:
+        check(f.read() == png_bytes and g.read() == hdr_bytes,
+              "the rerun wrote other bytes")
+    phase("cli_checkpoint_tonemap_exr", scene="rock100k two cameras",
+          res=400, launches=launches, rerun_launches=again,
+          png_equal=True, exr_equal=True, seconds=first_s,
+          rerun_seconds=again_s)
+
+
+def sharded_phase(render, bt, par, dev, card, rock, big, total):
+    """Phase 18 (c): ``render_rays_sharded`` of rock100k's and rock1800k's
+    400x400 primary rays over ``make_ray_mesh()`` and over the card listed
+    twice must equal the unsharded frame bit for bit; rock100k's
+    ``train_step_with_grads`` with the card listed twice must match it
+    listed once at rtol 2e-3, atol 2e-3 max|g|."""
+    from raytracer795_tpu_torch.models import whitted
+
+    for name, ld, kinds in (("rock100k", rock, ("nearest", "anyhit")),
+                            ("rock1800k", big,
+                             ("nearest_multi", "anyhit_multi"))):
+        rays, bg, key = grad_inputs(render, ld)
+        want = whitted.render_rays(ld.scene, rays, bg, key)
+        for mesh_name, mesh in (("make_ray_mesh()", par.make_ray_mesh()),
+                                ("card twice", [dev, dev])):
+            bt.reset_launch_counts()
+            got = par.render_rays_sharded(ld.scene, rays, bg, key, mesh)
+            torch.cuda.synchronize()
+            launches = dict(bt.LAUNCHES)
+            add_launches(total, bt)
+            check(bits_equal(got, want),
+                  f"{name} over {mesh_name} differs from the unsharded frame")
+            check(all(launches[k] > 0 for k in kinds),
+                  f"{name} over {mesh_name}: {launches}")
+            phase("sharded_render", scene=name, res=GRAD_RES, mesh=mesh_name,
+                  shards=len(mesh), equals_unsharded=True, launches=launches)
+
+    scene = rock.scene
+    rays, bg, key = grad_inputs(render, rock)
+    with torch.no_grad():
+        target = 0.9 * whitted.render_rays(scene, rays, bg, key)
+    iters = par.resolve_whitted_iters(scene, rays, bg, key)
+
+    def step(mesh):
+        return par.train_step_with_grads(scene, rays, bg, target, key, lr=0.0,
+                                         whitted_iters=iters, mesh=mesh)
+    loss1, g1, _ = step([dev])
+    bt.reset_launch_counts()
+    loss2, g2, _ = step([dev, dev])
+    add_launches(total, bt)
+    launches = dict(bt.LAUNCHES)
+    check(abs(float(loss2) - float(loss1)) <= 2e-3 * float(loss1),
+          f"2-shard loss {float(loss2)} against {float(loss1)}")
+    worst = {}
+    for k in g1:
+        for a, b in zip(param_leaves({k: g1[k]}), param_leaves({k: g2[k]})):
+            if not a.numel():
+                continue
+            scale = float(a.abs().max())
+            bad = int((~torch.isclose(b, a, rtol=2e-3,
+                                      atol=2e-3 * scale)).sum())
+            check(bad == 0 and bool(torch.isfinite(b).all()),
+                  f"rock100k 2-shard {k} gradients: {bad} differ")
+            worst[k] = max(worst.get(k, 0.0), float((a - b).abs().max()))
+    one = host_seconds(lambda: step([dev]))
+    two = host_seconds(lambda: step([dev, dev]))
+    phase("sharded_train_step", scene="rock100k", res=GRAD_RES,
+          loss_one=float(loss1), loss_two=float(loss2),
+          max_abs_grad_diff=worst, launches_two=launches,
+          tolerance="rtol 2e-3, atol 2e-3 max|g|",
+          one_shard_median_s=statistics.median(one), one_shard_s=one,
+          two_shard_median_s=statistics.median(two), two_shard_s=two,
+          card=card)
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def two_process_phase(card):
+    """Phase 18 (d): ``torch.distributed.run`` of the distributed CLI with
+    two processes on the one card (rock100k, 4 spp, 4 bands); rank 0's PNG
+    must be the one-process CLI's bytes."""
+    rock_xml = os.path.join(SCENES, "rock100k.xml")
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", PYTHONPATH=HERE)
+    runs = {}
+    for name, cmd in (
+            ("two_process", [sys.executable, "-m", "torch.distributed.run",
+                             "--nnodes", "1", "--nproc_per_node", "2",
+                             "--master_addr", "127.0.0.1", "--master_port",
+                             str(free_port()), "-m",
+                             "raytracer795_tpu_torch.parallel.distributed",
+                             rock_xml, "--spp", "4", "-o",
+                             os.path.join(OUT, "dist")]),
+            ("one_process", [sys.executable, "-m",
+                             "raytracer795_tpu_torch.render", rock_xml,
+                             "--spp", "4", "-o", os.path.join(OUT, "one"),
+                             "--device", "cuda"])):
+        t0 = time.perf_counter()
+        # a process group of its own, so that a timeout stops the ranks too
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        runs[name] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{name} exited {proc.returncode}:\n"
+              f"{out[-2000:]}\n{err[-4000:]}")
+    pngs = []
+    for d in ("dist", "one"):
+        with open(os.path.join(OUT, d, "rock100k.png"), "rb") as f:
+            pngs.append(f.read())
+    check(pngs[0] == pngs[1], "the two-process PNG differs from the "
+          "one-process PNG")
+    phase("two_process_render", scene="rock100k", res=400, spp=4,
+          processes=2, png_equal=True, wall_s=runs["two_process"],
+          one_process_wall_s=runs["one_process"], card=card)
+
+
+def scaleout_phase(render, bt, load_scene, dev, card, rock, big):
+    """Phase 18; returns its traversal launches."""
+    from raytracer795_tpu_torch.parallel import shard as par
+
+    total = dict.fromkeys(bt.LAUNCHES, 0)
+    os.makedirs(os.path.join(OUT, "ckpt"), exist_ok=True)
+    ld = load_scene(os.path.join(SCENES, "rock100k.xml"), dev)
+    ld.cameras[0] = dataclasses.replace(ld.cameras[0], nx=MS_RES, ny=MS_RES)
+    path, bands = kill_and_resume(render, bt, ld, MS_SPP, 5, total)
+    kill_and_resume(render, bt, ld, 1, 1, total)
+
+    def checkpointed():
+        os.remove(path)
+        render.render_camera(ld, 0, spp=MS_SPP, checkpoint=render.
+                             FilmCheckpoint(path, every_s=0.0))
+    saved = host_seconds(checkpointed)
+    plain = host_seconds(lambda: render.render_camera(ld, 0, spp=MS_SPP))
+    phase("checkpoint_time", scene="rock100k", res=MS_RES, spp=MS_SPP,
+          bands=bands, saved_every_band_median_s=statistics.median(saved),
+          saved_s=saved, plain_median_s=statistics.median(plain),
+          plain_s=plain, save_ms_per_band=(statistics.median(saved)
+                                           - statistics.median(plain))
+          / bands * 1e3, card=card)
+    cli_phase(render, bt, load_scene, dev, total)
+    sharded_phase(render, bt, par, dev, card, rock, big, total)
+    two_process_phase(card)
+    return total
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     # ---- 1. device ----
@@ -1758,11 +2041,16 @@ def main() -> int:
     # ---- 17. gradients and the train step ----
     grad_launches = gradient_phase(render, bt, intersect, load_scene, dev,
                                    card, loaded, big)
+    # ---- 18. checkpoints, tonemap and EXR, and scale-out ----
+    t0 = time.perf_counter()
+    scale_launches = scaleout_phase(render, bt, load_scene, dev, card,
+                                    loaded, big)
+    phase("phase18_wall", seconds=time.perf_counter() - t0)
     for k in ("nearest", "anyhit"):
         launches[k] += (inst_launches[k] + ms_launches[k] + pt_launches[k]
                         + big_launches[k] + tex_launches[k])
     for k in REPLACES:
-        launches[k] += grad_launches[k]
+        launches[k] += grad_launches[k] + scale_launches[k]
     err_by["nearest"] = max(err_by["nearest"], pt_err)
     err_by["anyhit"] = max(err_by["anyhit"], pt_bad)
 

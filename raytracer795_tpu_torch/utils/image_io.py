@@ -1,9 +1,9 @@
-"""Film output: LDR quantization, text PPM and PNG; and the PNG reader.
+"""Film output: LDR quantization, text PPM, PNG and EXR; and the PNG reader.
 
 Counterpart of ``raytracer795_tpu/utils/image_io.py``. The PNG writer and
-reader are built on ``zlib`` and ``struct`` alone, so neither writing a
-frame nor reading a texture needs an imaging package. EXR output is not
-ported yet (ROADMAP queue 1 item 16).
+reader are built on ``zlib`` and ``struct`` alone, and EXR goes through
+``utils/exr.py``, so neither writing a frame nor reading a texture needs an
+imaging package.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from raytracer795_tpu_torch.utils import exr
 
 
 def to_ldr(image: np.ndarray) -> np.ndarray:
@@ -142,5 +144,4 @@ def save_image(path: str, image: np.ndarray) -> None:
         with open(path, "wb") as f:
             f.write(png_bytes(to_ldr(image)))
     else:
-        raise NotImplementedError(
-            f"EXR output ({path}) is not ported yet: ROADMAP queue 1 item 16")
+        exr.write_exr(path, np.asarray(image, np.float32))

@@ -6,7 +6,8 @@
   (carried across with ``scene_from_numpy``): frac(|dLDR| > 1) < 1e-4.
   rock6k goes through the BVH walks end to end.
 - The CLI writes a PNG whose IDAT decodes to the ``to_ldr`` frame bit for
-  bit, and refuses ``--device cuda`` without a CUDA device.
+  bit, and refuses ``--device cuda`` without a CUDA device; tonemapped
+  PNG, EXR and checkpointed outputs are written.
 """
 
 import dataclasses
@@ -135,7 +136,7 @@ def test_cli_refuses_cuda_without_a_device(monkeypatch, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-def _simple_variant(tmp_path, old, new):
+def _simple_variant(tmp_path, old="", new=""):
     """simple.xml at 8x8 with ``old`` replaced by ``new``."""
     src = open(os.path.join(conftest.SCENES, "simple.xml")).read()
     assert old in src
@@ -144,42 +145,53 @@ def _simple_variant(tmp_path, old, new):
     return str(path)
 
 
-def _missing_tonemap(tmp_path):
+def _tonemap_png(tmp_path):
     from raytracer795_tpu_torch import render
     from raytracer795_tpu_torch.scene.loader import load_scene
+    from raytracer795_tpu_torch.utils.image_io import read_png
 
     path = _simple_variant(tmp_path, "</ImageName>", "</ImageName>"
                            "<Tonemap><TMOOptions>0.18 1</TMOOptions>"
                            "</Tonemap>")
-    render.render_scene(load_scene(path, "cpu"), str(tmp_path))
+    (png,) = render.render_scene(load_scene(path, "cpu"), str(tmp_path))
+    img = read_png(png)
+    assert img.shape == (8, 8, 3)
+    assert img.min() >= 0 and img.max() <= 255 and img.max() > 0
 
 
-def _missing_exr_output(tmp_path):
+def _exr_output(tmp_path):
     from raytracer795_tpu_torch import render
     from raytracer795_tpu_torch.scene.loader import load_scene
+    from raytracer795_tpu_torch.utils.exr import read_exr
 
     path = _simple_variant(tmp_path, "simple.png", "simple.exr")
-    render.render_scene(load_scene(path, "cpu"), str(tmp_path))
+    (exr,) = render.render_scene(load_scene(path, "cpu"), str(tmp_path))
+    img = read_exr(exr)
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all() \
+        and img.max() > 0
 
 
-def _missing_checkpoints(tmp_path):
+def _checkpoints(tmp_path):
     from raytracer795_tpu_torch import render
 
-    render.main([os.path.join(conftest.SCENES, "simple.xml"), "-o",
-                 str(tmp_path), "--device", "cpu", "--checkpoint-dir",
-                 str(tmp_path / "ckpt")])
+    path = _simple_variant(tmp_path)
+    render.main([path, "-o", str(tmp_path), "--device", "cpu",
+                 "--checkpoint-dir", str(tmp_path / "ckpt")])
+    assert (tmp_path / "simple.png").exists()
+    saved = np.load(tmp_path / "ckpt" / "simple.png.ckpt.npz")
+    assert int(saved["row0"]) == 8 and (saved["sample_count"] == 1).all()
 
 
-@pytest.mark.parametrize("run,item", [
-    (_missing_tonemap, "item 16"),        # Tonemap camera
-    (_missing_exr_output, "item 16"),     # .exr ImageName
-    (_missing_checkpoints, "item 16"),    # film checkpoint/resume
+@pytest.mark.parametrize("run", [
+    _tonemap_png,        # Tonemap camera
+    _exr_output,         # .exr ImageName
+    _checkpoints,        # film checkpoint/resume
 ])
-def test_unported_features_raise(run, item, tmp_path):
-    """Features still missing from the port raise NotImplementedError
-    naming their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=item):
-        run(tmp_path)
+def test_item16_features_run(run, tmp_path):
+    """The features ROADMAP item 16 ported: a Tonemap camera writes an
+    in-range PNG, an .exr camera a readable EXR, and ``--checkpoint-dir``
+    a checkpoint beside the image."""
+    run(tmp_path)
 
 
 @pytest.mark.parametrize("packed", [False, True])

@@ -114,7 +114,9 @@ def test_port_never_imports_jax(tmp_path):
     unloaded, for a brute-force scene, a multi-packed rock6k, multi-sample
     frames of the path tracer and of a depth-of-field, glossy scene (the
     RNG, sample rays and path tracer modules), the textured scene with its
-    PNG and JPEG images, the EXR environment light, and a train step."""
+    PNG and JPEG images, the EXR environment light, a train step, and a
+    render sharded over a two-device mesh with the tonemap, EXR and
+    distributed modules imported."""
     code = f"""
 import sys
 import numpy as np
@@ -152,6 +154,14 @@ bg = render._background_radiance(ld.scene, cam, rays, px, py)
 loss, grads, _ = shard.train_step_with_grads(
     ld.scene, rays, bg, torch.zeros((64, 3)), (0, 0))
 assert bool(torch.isfinite(grads["vertices"]).all()) and float(loss) > 0
+from raytracer795_tpu_torch.parallel import distributed   # scale-out
+from raytracer795_tpu_torch.utils import exr, tonemap
+img = shard.render_rays_sharded(ld.scene, rays, bg, (0, 0),
+                                [torch.device("cpu")] * 2)
+assert img.shape == (64, 3) and float(img.max()) > 0
+exr.write_exr("frame.exr", tonemap.reinhard_global(
+    img.reshape(8, 8, 3).numpy()))
+assert exr.read_exr("frame.exr").shape == (8, 8, 3)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "raytracer795_tpu", "PIL")]
 assert not bad, bad
