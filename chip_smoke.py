@@ -117,10 +117,33 @@ non-zero and prints no result:
    tests/test_tpu.py:75-128) through the kernels must equal the CPU port's
    through the plain walks at rtol 2e-3, atol 2e-3 max|g|, and two card
    runs' difference is printed.
+18. checkpoints, tonemap and EXR, scale-out: rock100k at 800x800 killed
+   and resumed from its checkpoint at 4 and 1 spp (bit-equal to the whole
+   film, fewer launches), a save's cost a band, the CLI with
+   ``--checkpoint-dir`` on a tonemapped-PNG + EXR variant (exact bytes; the
+   rerun launches nothing), rock100k and rock1800k rays split over the card
+   listed once and twice (bit-equal), a two-shard train step, and
+   ``torch.distributed.run`` of two ranks on the card (PNG bytes equal to
+   the one-process CLI's).
+19. the profiler, net rays and the bench entry points: ``profile_scene`` of
+   rock100k at 512x512 (the JAX module's stages in its order, every time
+   above 0; ``trace`` launches one nearest kernel and ``trace_anyhit`` one
+   any-hit kernel, and no plain walk runs), and ``profiling.main`` with
+   ``--trace-dir`` writing a trace that names ``nearest_kernel<false>``; a
+   400x400 rock100k band with stats bit-equal to the band without; the
+   net-ray counts of rock100k (400x400), rock1800k (400x400, multi-pack
+   launches only) and cornellbox_pt (800x800, 4 spp), each twice and
+   equal, between the lanes and the gross count; the 64x64, 2-spp
+   cornellbox_pt count on the card within 0.1% of the CPU port's; then
+   ``bench.main`` and ``bench_mesh.main`` (phase 4's rock100k and phase
+   6's rock1800k passed in): four lines that parse, carry the card and
+   have 0 < net rays/s <= gross rays/s. Its wall time is printed.
 
 The ``kernels`` line's launch counts are summed over the main paths that
-run each kernel (phases 4, 7, 8, 11, 15 and 16, and phase 17's three train
-steps, forward and backward, each counted from 0). The
+run each kernel (phases 4, 7, 8, 11, 15 and 16, phase 17's three train
+steps, forward and backward, phase 18's resumed frames, CLI runs, sharded
+frames and step, and phase 19's profile, net counts and benches, each
+counted from 0). The
 last three lines are the card, the kernels' JSON record and the result line;
 the wall time is printed on an earlier line. It imports nothing of jax or
 of the JAX package.
@@ -131,6 +154,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import os
 import re
@@ -221,6 +245,11 @@ VERTEX_STEP_DECREASE = 1e-3
 # the host's kernel launch calls, as the profiler names them
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
+# the JAX profiler's stages, in its order (raytracer795_tpu/profiling.py:
+# 70-79), and its default wavefront size
+PROFILE_STAGES = ("ray_gen", "trace", "trace_anyhit", "hit_details",
+                  "apply_textures", "direct_lighting", "full_frame")
+PROFILE_RES = 512
 
 
 def check(cond, msg):
@@ -1777,6 +1806,154 @@ def scaleout_phase(render, bt, load_scene, dev, card, rock, big):
     return total
 
 
+def profiler_phase(bt, intersect, loaded, total, card):
+    """Phase 19 (a): ``profile_scene`` of rock100k at 512x512, its stages
+    those of the JAX module and ``trace``/``trace_anyhit`` each launching
+    its single-pack kernel and no plain walk; ``profiling.main`` with
+    ``--trace-dir`` writes a trace that names the nearest kernel."""
+    from raytracer795_tpu_torch import profiling
+
+    bt.reset_launch_counts()
+    with counting(intersect, PLAIN_WALKS) as plain:
+        prof = profiling.profile_scene(loaded, res=PROFILE_RES, reps=5)
+    add_launches(total, bt)
+    launches = dict(bt.LAUNCHES)
+    check([name for name, _, _ in prof] == list(PROFILE_STAGES),
+          f"profile stages {[name for name, _, _ in prof]}")
+    check(all(s > 0 for _, s, _ in prof), f"a stage took no time: {prof}")
+    _, stages = profiling.stages(loaded, PROFILE_RES)
+    by_stage = {}
+    with counting(intersect, PLAIN_WALKS) as stage_plain:
+        for name, fn in stages:
+            bt.reset_launch_counts()
+            with torch.no_grad():
+                fn()
+            torch.cuda.synchronize()
+            by_stage[name] = {k: n for k, n in bt.LAUNCHES.items() if n}
+    check(not any(plain.values()) and not any(stage_plain.values()),
+          f"plain walks ran in the profile: {plain}, {stage_plain}")
+    check(by_stage["trace"] == {"nearest": 1}
+          and by_stage["trace_anyhit"] == {"anyhit": 1},
+          f"trace and trace_anyhit launches: {by_stage}")
+    trace_dir = os.path.join(OUT, "profile_trace")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        profiling.main([os.path.join(SCENES, "rock100k.xml"), "--res",
+                        str(PROFILE_RES), "--reps", "1", "--trace-dir",
+                        trace_dir])
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    check([ln["stage"] for ln in lines]
+          == list(PROFILE_STAGES) + ["profiler_trace"],
+          f"profiling.main printed {lines}")
+    with open(lines[-1]["file"]) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    symbol = KERNEL_SYMBOLS["nearest"]
+    check(any(symbol in name for name in names),
+          f"the trace names no {symbol}")
+    phase("profile_scene", scene="rock100k", res=PROFILE_RES, reps=5,
+          stages={name: {"ms": s * 1e3, "lanes_per_s": lps}
+                  for name, s, lps in prof},
+          launches=launches, stage_launches=by_stage,
+          main_ms={ln["stage"]: ln["ms"] for ln in lines[:-1]},
+          trace_file=os.path.relpath(lines[-1]["file"], HERE),
+          trace_events=len(names), card=card)
+
+
+def net_phase(render, bt, load_scene, dev, rock, big, total, card):
+    """Phase 19 (b): a rock100k band with stats equal to it without, bit
+    for bit; net-ray counts of rock100k, rock1800k (multi-pack launches
+    only) and cornellbox_pt, each twice, equal, and between the lanes and
+    the gross count; the card's 64x64 cornellbox_pt count against the CPU
+    port's."""
+    from raytracer795_tpu_torch.bench import with_frame
+    from raytracer795_tpu_torch.models import camera, whitted
+    from raytracer795_tpu_torch.utils import rng
+
+    cam = rock.cameras[0]
+    px, py = camera.band_pixels(cam.nx, cam.ny, dev)
+    rays = camera.primary_rays_at(cam, px, py)
+    bg = render._background_radiance(rock.scene, cam, rays, px, py)
+    plain = whitted.render_rays(rock.scene, rays, bg, rng.PRNGKey(0))
+    counted, band_net = whitted.render_rays(rock.scene, rays, bg,
+                                            rng.PRNGKey(0), with_stats=True)
+    check(bits_equal(plain, counted),
+          "the rock100k band with stats differs from the band without")
+    phase("stats_band", scene="rock100k", res=cam.nx, lanes=px.shape[0],
+          with_stats_equals_without=True, net_rays=int(band_net))
+
+    pt = load_scene(os.path.join(SCENES, "cornellbox_pt.xml"), dev)
+    for name, ld in (("rock100k", rock), ("rock1800k", big),
+                     ("cornellbox_pt", with_frame(pt, MS_RES, MS_SPP))):
+        c = ld.cameras[0]
+        nets, secs = [], []
+        for _ in range(2):
+            bt.reset_launch_counts()
+            t0 = time.perf_counter()
+            nets.append(render.count_net_rays(ld, 0, seed=1))
+            secs.append(time.perf_counter() - t0)
+            add_launches(total, bt)
+        launches = dict(bt.LAUNCHES)
+        gross = render.gross_rays(ld.scene, c)
+        lanes = c.nx * c.ny * max(1, c.num_samples)
+        check(nets[0] == nets[1], f"{name}: two counts {nets}")
+        check(lanes <= nets[0] <= gross,
+              f"{name}: net {nets[0]} outside [{lanes}, {gross}]")
+        if name == "rock1800k":
+            check(launches["nearest_multi"] > 0
+                  and launches["anyhit_multi"] > 0
+                  and launches["nearest"] == 0 and launches["anyhit"] == 0,
+                  f"rock1800k's count launched {launches}")
+        phase("net_rays", scene=name, res=c.nx, spp=max(1, c.num_samples),
+              net_rays=nets[0], gross_rays=gross, lanes=lanes,
+              net_over_gross=nets[0] / gross, count_s=secs,
+              launches=launches, card=card)
+
+    small = {d: with_frame(load_scene(os.path.join(
+        SCENES, "cornellbox_pt.xml"), d), 64, 2) for d in (dev, "cpu")}
+    on_card, on_cpu = (render.count_net_rays(small[d], 0, seed=1)
+                       for d in (dev, "cpu"))
+    rel = abs(on_card - on_cpu) / on_cpu
+    check(rel <= 1e-3, f"64x64 cornellbox_pt: card {on_card}, CPU {on_cpu}")
+    phase("net_rays_card_vs_cpu", scene="cornellbox_pt", res=64, spp=2,
+          card_net=on_card, cpu_net=on_cpu, difference=on_card - on_cpu,
+          relative=rel)
+
+
+def bench_phase(bt, rock, big, total, card):
+    """Phase 19 (c): ``bench.main`` and ``bench_mesh.main`` (rock100k and
+    rock1800k passed in as loaded); every line parses, carries the card,
+    and has 0 < net rays/s <= gross."""
+    from raytracer795_tpu_torch import bench, bench_mesh
+
+    out = io.StringIO()
+    bt.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        bench.main()
+        bench_mesh.main({"rock100k.xml": rock, "rock1800k.xml": big})
+    add_launches(total, bt)
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    check(len(lines) == 4, f"{len(lines)} bench lines")
+    for rec in lines:
+        check({"metric", "value", "unit", "net_rays_per_s", "card",
+               "median_s", "best_s"} <= set(rec), f"bench keys {rec}")
+        check(rec["card"] == card, f"bench card {rec['card']!r}")
+        check(0 < rec["net_rays_per_s"] <= rec["value"],
+              f"bench rays/s {rec}")
+        phase("bench", **rec)
+    check(all("frame_seconds" in rec for rec in lines[1:]),
+          "bench_mesh's lines carry frame_seconds")
+    phase("bench_launches", launches=dict(bt.LAUNCHES))
+
+
+def stats_phase(render, bt, intersect, load_scene, dev, card, rock, big):
+    """Phase 19; returns its traversal launches."""
+    total = dict.fromkeys(bt.LAUNCHES, 0)
+    profiler_phase(bt, intersect, rock, total, card)
+    net_phase(render, bt, load_scene, dev, rock, big, total, card)
+    bench_phase(bt, rock, big, total, card)
+    return total
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     # ---- 1. device ----
@@ -2046,11 +2223,18 @@ def main() -> int:
     scale_launches = scaleout_phase(render, bt, load_scene, dev, card,
                                     loaded, big)
     phase("phase18_wall", seconds=time.perf_counter() - t0)
+    # ---- 19. the profiler, net rays and the bench entry points ----
+    t0 = time.perf_counter()
+    stats_launches = stats_phase(render, bt, intersect, load_scene, dev,
+                                 card, loaded, big)
+    phase("phase19_wall", seconds=time.perf_counter() - t0,
+          launches=stats_launches)
     for k in ("nearest", "anyhit"):
         launches[k] += (inst_launches[k] + ms_launches[k] + pt_launches[k]
                         + big_launches[k] + tex_launches[k])
     for k in REPLACES:
-        launches[k] += grad_launches[k] + scale_launches[k]
+        launches[k] += (grad_launches[k] + scale_launches[k]
+                        + stats_launches[k])
     err_by["nearest"] = max(err_by["nearest"], pt_err)
     err_by["anyhit"] = max(err_by["anyhit"], pt_bad)
 

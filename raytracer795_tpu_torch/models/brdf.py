@@ -109,3 +109,11 @@ def term_brdf_rec(wi: Vec3, wo: Vec3, normal: Vec3, rec: BrdfRec) -> Vec3:
                     (T.BRDF_TSF, f_tsf)):
         out = vwhere(btype == code, f, out)
     return out
+
+
+def brdf_radiance(wi: Vec3, wo: Vec3, normal: Vec3, radiance: Vec3,
+                  mats, mat_idx) -> Vec3:
+    """L * f * max(0, n.wi) (src/Light.cpp:157-162)."""
+    f = term_brdf(wi, wo, normal, mats, mat_idx)
+    cos_i = torch.clamp_min(vdot(wi, normal), 0.0)
+    return radiance * f * cos_i

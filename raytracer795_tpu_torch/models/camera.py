@@ -3,7 +3,10 @@
 Counterpart of ``raytracer795_tpu/models/camera.py``: tile-swizzled lane
 order, center-of-pixel primary rays (src/Camera.cpp:63-72), and jittered
 sample rays with depth of field and motion-blur time, drawn from the RNG
-that matches ``jax.random`` (``utils/rng.py``).
+that matches ``jax.random`` (``utils/rng.py``). The frames trace per-lane
+pixels (``*_at``); ``primary_rays`` and ``sample_rays_range`` give a band
+of rows in image-row-major order, for the profiler and callers of the JAX
+package's names.
 """
 
 from __future__ import annotations
@@ -76,6 +79,24 @@ def primary_rays_at(cam: Camera, px: torch.Tensor, py: torch.Tensor) -> Rays:
     return Rays(o=o, d=d, time=torch.zeros((n,), device=dev))
 
 
+def _row_major_pixels(nx: int, row0: int, n_rows: int, device):
+    """Lane -> (px, py) of rows [row0, row0 + n_rows), image-row-major."""
+    px = torch.arange(nx, dtype=torch.int32, device=device).repeat(n_rows)
+    py = (row0 + torch.arange(n_rows, dtype=torch.int32, device=device)
+          ).repeat_interleave(nx)
+    return px, py
+
+
+def primary_rays(cam: Camera, row0: int = 0, n_rows: int | None = None,
+                 device="cuda") -> Rays:
+    """Center-of-pixel rays, time 0, in image-row-major lane order (not
+    band_pixels' tile order), on ``device``; ``row0`` and ``n_rows``
+    select a band of rows (all of them by default)."""
+    n_rows = cam.ny if n_rows is None else n_rows
+    return primary_rays_at(cam, *_row_major_pixels(cam.nx, row0, n_rows,
+                                                   device))
+
+
 def _f32(v) -> float:
     """A host double rounded once to float32, as JAX rounds a Python scalar
     where it meets a float32 array."""
@@ -146,3 +167,19 @@ def sample_rays_at(cam: Camera, key: rng.Key, px: torch.Tensor,
     return Rays(o=Vec3(o.x.reshape(n), o.y.reshape(n), o.z.reshape(n)),
                 d=Vec3(d.x.reshape(n), d.y.reshape(n), d.z.reshape(n)),
                 time=time.reshape(n))
+
+
+def sample_rays(cam: Camera, key: rng.Key, device="cuda") -> Rays:
+    """All jittered sample rays of a frame, [ny * nx * num_samples] lanes."""
+    return sample_rays_range(cam, key, 0, cam.num_samples, device=device)
+
+
+def sample_rays_range(cam: Camera, key: rng.Key, base: int, count: int,
+                      row0: int = 0, n_rows: int | None = None,
+                      device="cuda") -> Rays:
+    """Jittered samples [base, base + count) of rows [row0, row0 + n_rows)
+    in image-row-major lane order (see sample_rays_at); the chi draw over
+    the [P, count] lanes is the JAX package's draw bit for bit."""
+    n_rows = cam.ny if n_rows is None else n_rows
+    return sample_rays_at(cam, key, *_row_major_pixels(cam.nx, row0, n_rows,
+                                                       device), base, count)

@@ -33,7 +33,7 @@ and the NEE occlusion cap; Russian roulette's survival q stays on the tape.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -42,7 +42,8 @@ from raytracer795_tpu_torch.models.brdf import _mat3_rows, term_brdf
 from raytracer795_tpu_torch.models.lights import ShadePoint, direct_lighting
 from raytracer795_tpu_torch.models.whitted import (_conductor_fresnel,
                                                    _fresnel_dielectric,
-                                                   _glossy_perturb, _refract)
+                                                   _glossy_perturb, _refract,
+                                                   n_shadow_lights)
 from raytracer795_tpu_torch.ops import intersect
 from raytracer795_tpu_torch.ops.texture import apply_textures
 from raytracer795_tpu_torch.scene import types as T
@@ -188,16 +189,24 @@ class _PTState(NamedTuple):
     tput: Vec3
     sigma: Vec3                     # Beer coefficient of the segment
     radiance: Vec3
+    net: Optional[torch.Tensor] = None  # [] int64 rays traced, with stats
 
 
 def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
-                key: rng.Key) -> torch.Tensor:
+                key: rng.Key, with_stats: bool = False):
     """Path-trace a batch of camera rays to radiance [N, 3].
 
     Differentiable when autograd is on (the forward entry points of
     render.py turn it off): each bounce is checkpointed
     (``use_reentrant=False``), as the JAX package checkpoints its
     ``fori_loop`` body, and the loop ends once no lane is live.
+
+    ``with_stats=True`` returns ``(radiance, net_rays)``: net_rays is a
+    0-d int64 tensor on the rays' device, the rays live lanes traced (one
+    extension ray a lane active at a bounce, plus one shadow ray for each
+    NEE object light and each classic light per diffuse-shaded lane), the
+    JAX package's count: the bounces it runs after the last lane died add
+    0. The radiance is the same bits.
     """
     N = rays.o.x.shape[0]
     dev = rays.o.x.device
@@ -206,7 +215,9 @@ def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
         active=torch.ones((N,), dtype=torch.bool, device=dev),
         count_emission=torch.ones((N,), dtype=torch.bool, device=dev),
         o=rays.o, d=rays.d, tput=Vec3.ones((N,), dev),
-        sigma=Vec3.zeros((N,), dev), radiance=Vec3.zeros((N,), dev))
+        sigma=Vec3.zeros((N,), dev), radiance=Vec3.zeros((N,), dev),
+        net=(torch.zeros((), dtype=torch.int64, device=dev) if with_stats
+             else None))
     ckpt = torch.is_grad_enabled()
     for i in range(max(scene.max_depth, 1)):
         if i and not bool(state.active.any()):
@@ -214,7 +225,8 @@ def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
         args = (scene, rays.time, bg_radiance, key, vertex_normals, state, i)
         state = (checkpoint(_bounce, *args, use_reentrant=False) if ckpt
                  else _bounce(*args))
-    return state.radiance.to_array()
+    radiance = state.radiance.to_array()
+    return (radiance, state.net) if with_stats else radiance
 
 
 def _bounce(scene: T.Scene, time: torch.Tensor, bg: Vec3, key: rng.Key,
@@ -260,6 +272,14 @@ def _bounce(scene: T.Scene, time: torch.Tensor, bg: Vec3, key: rng.Key,
     is_mirror = hit_valid & (mtype == T.MAT_MIRROR)
     is_conductor = hit_valid & (mtype == T.MAT_CONDUCTOR)
     is_dielectric = hit_valid & (mtype == T.MAT_DIELECTRIC)
+    net = s.net
+    if net is not None:
+        # one extension ray an active lane, one shadow ray a light (NEE's
+        # object lights and the classic ones) for each diffuse lane
+        n_nee = (len(scene.sphere_lights) + len(scene.mesh_lights)
+                 if scene.pt_nee else 0)
+        net = (net + active.sum()
+               + (n_nee + n_shadow_lights(scene)) * is_diffuse.sum())
 
     # ---- NEE and classic lights at diffuse vertices ----
     sp = ShadePoint(point=det.point, normal=normal, wo=-d, mat=det.mat,
@@ -344,4 +364,4 @@ def _bounce(scene: T.Scene, time: torch.Tensor, bg: Vec3, key: rng.Key,
     return _PTState(
         active=cont, count_emission=count_emission,
         o=vwhere(cont, new_o, o), d=vwhere(cont, new_d, d), tput=tput,
-        sigma=vwhere(cont, sigma_next, sigma), radiance=radiance)
+        sigma=vwhere(cont, sigma_next, sigma), radiance=radiance, net=net)

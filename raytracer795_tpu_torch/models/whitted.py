@@ -42,7 +42,7 @@ included, instead of keeping its wavefront.
 from __future__ import annotations
 
 import warnings
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -144,6 +144,17 @@ class _State(NamedTuple):
     st_tput: Vec3
     st_depth: torch.Tensor
     st_sigma: Vec3
+    net: Optional[torch.Tensor] = None  # [] int64 rays traced, with stats
+
+
+def n_shadow_lights(scene: T.Scene) -> int:
+    """Lights that trace one occlusion ray per shaded lane: point,
+    directional, spot and area lights, and the environment light."""
+    return int(scene.lights.point_pos.shape[0]
+               + scene.lights.dir_dir.shape[0]
+               + scene.lights.spot_pos.shape[0]
+               + scene.lights.area_pos.shape[0]) \
+        + (1 if scene.env_texture >= 0 else 0)
 
 
 def iteration_bound(scene: T.Scene) -> int:
@@ -156,8 +167,14 @@ def iteration_bound(scene: T.Scene) -> int:
 
 def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
                 key: rng.Key, differentiable: bool = False,
-                max_iters: int | None = None) -> torch.Tensor:
+                max_iters: int | None = None, with_stats: bool = False):
     """Shade a batch of camera rays to radiance [N, 3].
+
+    ``with_stats=True`` returns ``(radiance, net_rays)``: net_rays is a
+    0-d int64 tensor on the rays' device, the rays live lanes traced (one
+    extension ray a lane active in an iteration, plus one shadow ray per
+    shadow light for each lane shaded), the JAX package's count. The
+    radiance is the same bits; without stats no reduction is launched.
 
     ``differentiable=False`` (the port's default; the JAX package's is
     True) renders without autograd, until every lane is idle or at
@@ -175,10 +192,14 @@ def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
     """
     if not differentiable:
         with torch.no_grad():
-            return _render_machine(scene, rays, bg_radiance, key,
-                                   iteration_bound(scene))[0]
-    trips = iteration_bound(scene) if max_iters is None else max_iters
-    return _render_machine(scene, rays, bg_radiance, key, trips)[0]
+            radiance, _, net = _render_machine(
+                scene, rays, bg_radiance, key, iteration_bound(scene),
+                with_stats)
+    else:
+        trips = iteration_bound(scene) if max_iters is None else max_iters
+        radiance, _, net = _render_machine(scene, rays, bg_radiance, key,
+                                           trips, with_stats)
+    return (radiance, net) if with_stats else radiance
 
 
 def forward_iteration_count(scene: T.Scene, rays: intersect.Rays,
@@ -193,10 +214,10 @@ def forward_iteration_count(scene: T.Scene, rays: intersect.Rays,
 
 
 def _render_machine(scene: T.Scene, rays: intersect.Rays, bg: Vec3,
-                    key: rng.Key, max_iters: int):
+                    key: rng.Key, max_iters: int, with_stats: bool = False):
     """Runs the lane machine for at most ``max_iters`` iterations, each
     checkpointed when autograd is on; returns (radiance [N, 3],
-    iterations)."""
+    iterations, net rays or None without stats)."""
     N = rays.o.x.shape[0]
     dev = rays.o.x.device
     D = max(scene.max_depth, 1)
@@ -212,7 +233,9 @@ def _render_machine(scene: T.Scene, rays: intersect.Rays, bg: Vec3,
         st_o=Vec3.zeros((D, N), dev), st_d=Vec3.zeros((D, N), dev),
         st_tput=Vec3.zeros((D, N), dev),
         st_depth=torch.zeros((D, N), dtype=torch.int32, device=dev),
-        st_sigma=Vec3.zeros((D, N), dev))
+        st_sigma=Vec3.zeros((D, N), dev),
+        net=(torch.zeros((), dtype=torch.int64, device=dev) if with_stats
+             else None))
 
     def live(s: _State) -> bool:
         return bool(torch.any(s.active | (s.sp > 0)))
@@ -228,7 +251,7 @@ def _render_machine(scene: T.Scene, rays: intersect.Rays, bg: Vec3,
     if it == max_iters and live(state):
         warnings.warn(f"Whitted lanes still live at the {max_iters}-iteration "
                       "bound; their remaining ray trees are dropped")
-    return state.radiance.to_array(), it
+    return state.radiance.to_array(), it, state.net
 
 
 def _iteration(scene: T.Scene, time: torch.Tensor, bg: Vec3, key: rng.Key,
@@ -300,6 +323,11 @@ def _iteration(scene: T.Scene, time: torch.Tensor, bg: Vec3, key: rng.Key,
         point=det.point, normal=normal, wo=-d, mat=mat_idx,
         dm=tex.dm, tex_color=tex.tex_color, tex_norm=tex.tex_normalizer,
         time=time, valid=emits)
+    net = s.net
+    if net is not None:
+        # one extension ray an active lane, one shadow ray a light for
+        # each shaded lane
+        net = net + active.sum() + n_shadow_lights(scene) * emits.sum()
     basic = direct_lighting(scene, sp_point, iter_key)
     radiance = radiance + vscrub_nan(vwhere(emits, tput * basic, 0.0))
 
@@ -371,4 +399,4 @@ def _iteration(scene: T.Scene, time: torch.Tensor, bg: Vec3, key: rng.Key,
         depth=torch.where(continues, depth - 1, depth),
         sigma=vwhere(continues, sigma_next, sigma), radiance=radiance,
         sp=sp, st_o=st_o, st_d=st_d, st_tput=st_tput, st_depth=st_depth,
-        st_sigma=st_sigma)
+        st_sigma=st_sigma, net=net)

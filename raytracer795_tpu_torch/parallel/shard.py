@@ -84,6 +84,12 @@ def _replicas(scene: T.Scene, mesh: Sequence) -> Dict[torch.device, T.Scene]:
     return out
 
 
+def pad_to_multiple(n: int, m: int) -> int:
+    """The least multiple of ``m`` at or above ``n``: a lane count that
+    splits over a mesh of ``m`` devices."""
+    return ((n + m - 1) // m) * m
+
+
 def _slices(n: int, mesh: Sequence) -> List[slice]:
     if n % len(mesh):
         raise ValueError(f"{n} lanes do not split over a mesh of "

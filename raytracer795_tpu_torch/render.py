@@ -24,6 +24,11 @@ Frames build no autograd graph: ``render_band`` and
 integrators themselves are differentiable (``parallel/shard.py`` takes
 their gradients).
 
+``count_net_rays`` counts the rays a frame's live lanes trace (the JAX
+package's survivor-weighted "net" count) by rendering the frame once more
+through the same schedule; ``log_render_stats`` reports it beside the gross
+count.
+
 CLI::
 
     python -m raytracer795_tpu_torch.render scene.xml [-o OUTDIR]
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -63,10 +69,12 @@ from raytracer795_tpu_torch.utils.vec3 import Vec3, cdiv
 MAX_LANES = 1 << 18
 
 
-def _integrator(scene: T.Scene):
+def _integrator(scene: T.Scene, with_stats: bool = False):
+    """The scene's integrator; with stats it returns (radiance, net)."""
     if scene.renderer == "pathtracing":
-        return path_tracer.render_rays
-    return whitted.render_rays
+        return functools.partial(path_tracer.render_rays,
+                                 with_stats=with_stats)
+    return functools.partial(whitted.render_rays, with_stats=with_stats)
 
 
 def band_rows(cam: T.Camera) -> int:
@@ -229,9 +237,10 @@ def render_camera(loaded: T.LoadedScene, cam_index: int = 0, seed: int = 0,
     render; it renders on the float path (``ldr`` is ignored).
     ``_abort_after_saves`` raises ``KeyboardInterrupt`` after that many
     saves (a kill, for tests). ``_distribute`` is ``(owns, integrate)``
-    from ``parallel/distributed.py``: bands whose index ``owns`` refuses
-    stay 0 and launch nothing, and ``integrate(scene, rays, bg, key)``
-    replaces the scene's integrator.
+    from ``parallel/distributed.py`` or ``count_net_rays``: bands whose
+    index ``owns`` refuses (none when it is None) stay 0 and launch
+    nothing, and ``integrate(scene, rays, bg, key)`` replaces the scene's
+    integrator.
     """
     scene = loaded.scene
     cam = with_spp(loaded.cameras[cam_index], spp)
@@ -312,6 +321,30 @@ def render_camera(loaded: T.LoadedScene, cam_index: int = 0, seed: int = 0,
     return film if total == 1 else film / np.float32(total)
 
 
+def count_net_rays(loaded: T.LoadedScene, cam_index: int = 0,
+                   seed: int = 0, spp: int | None = None) -> int:
+    """Rays the live lanes of a frame trace (the JAX package's
+    ``count_net_rays``): extension rays of the lanes still active at each
+    iteration or bounce, plus the shadow rays of the lanes shaded. The
+    gross count bills every lane for the full depth; this one does not.
+
+    It renders the frame once more through ``render_camera``, with an
+    integrator that also counts, so bands, sample chunks and keys are the
+    frame's own; its one host read is the final sum. Call it outside a
+    timed region.
+    """
+    counted = _integrator(loaded.scene, with_stats=True)
+    nets = []
+
+    def integrate(scene, rays, bg, key):
+        radiance, net = counted(scene, rays, bg, key)
+        nets.append(net)
+        return radiance
+    render_camera(loaded, cam_index, seed=seed, spp=spp,
+                  _distribute=(None, integrate))
+    return int(torch.stack(nets).sum())
+
+
 def scene_stats(scene: T.Scene) -> dict:
     """Primitive counts, BVH shape and the traversal tables' bytes; the
     ``lights`` that trace shadow rays count the environment light, as the
@@ -328,18 +361,13 @@ def scene_stats(scene: T.Scene) -> dict:
         if flats and (g.pack_share < 0 or g.pack_share not in shared):
             shared.add(g.pack_share)
             table_bytes += bvh_traverse.table_nbytes(g)
-    n_lights = int(scene.lights.point_pos.shape[0]
-                   + scene.lights.dir_dir.shape[0]
-                   + scene.lights.spot_pos.shape[0]
-                   + scene.lights.area_pos.shape[0]) \
-        + (1 if scene.env_texture >= 0 else 0)
     return {
         "renderer": scene.renderer, "max_depth": int(scene.max_depth),
         "tris": int(tris), "spheres": int(spheres),
         "groups": len(scene.groups), "bvh_nodes": int(nodes),
         "packs": sum(len(g.pack_bvhs or ()) for g in scene.groups),
         "traverse_table_mb": round(table_bytes / 1e6, 2),
-        "lights": n_lights,
+        "lights": whitted.n_shadow_lights(scene),
         "object_lights": len(scene.sphere_lights) + len(scene.mesh_lights),
         "textures": int(scene.n_textures),
     }
@@ -359,13 +387,15 @@ def gross_rays(scene: T.Scene, cam: T.Camera) -> int:
 
 
 def log_render_stats(scene: T.Scene, cam: T.Camera, seconds: float,
-                     stream=None) -> dict:
+                     stream=None, net_rays: int | None = None) -> dict:
     """Emit ONE JSON line per render to stderr, naming the device.
 
     ``rays`` and ``rays_per_s`` are the JAX package's log line's
     (its render.py:528-538): lanes x max_depth x (1 + lights), the
     environment light counted and object lights not; ``gross_rays_per_s``
-    is ``gross_rays``, the bench accounting."""
+    is ``gross_rays``, the bench accounting. ``net_rays`` (from
+    ``count_net_rays``) adds ``rays_net`` and ``rays_net_per_s``, as the
+    JAX line does."""
     dev = scene.device
     st = scene_stats(scene)
     rays = cam.nx * cam.ny * max(1, cam.num_samples) * st["max_depth"] \
@@ -381,6 +411,9 @@ def log_render_stats(scene: T.Scene, cam: T.Camera, seconds: float,
         "gross_rays_per_s": gross_rays(scene, cam) / max(seconds, 1e-9),
         **st,
     }
+    if net_rays is not None:
+        rec["rays_net"] = int(net_rays)
+        rec["rays_net_per_s"] = round(net_rays / max(seconds, 1e-9), 1)
     print(json.dumps(rec), file=stream or sys.stderr)
     return rec
 
@@ -424,6 +457,17 @@ def render_scene(loaded: T.LoadedScene, out_dir: str = ".", seed: int = 0,
     return paths
 
 
+def cli_device(name: str) -> torch.device:
+    """A command line's ``--device``; "cuda" without a CUDA device raises
+    rather than running on the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}, but CUDA is not available; pass --device cpu "
+            "to run on the CPU")
+    return device
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="ray tracer on PyTorch and CUDA")
     ap.add_argument("scene", help="scene XML file (reference contract)")
@@ -439,12 +483,7 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=float, default=30.0,
                     help="seconds between checkpoint saves")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda, but CUDA is not available; pass --device cpu "
-            "to render on the CPU")
-    loaded = load_scene(args.scene, device)
+    loaded = load_scene(args.scene, cli_device(args.device))
     os.makedirs(args.out_dir, exist_ok=True)
     render_scene(loaded, args.out_dir, seed=args.seed, spp=args.spp,
                  checkpoint_dir=args.checkpoint_dir,

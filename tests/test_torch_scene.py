@@ -116,7 +116,8 @@ def test_port_never_imports_jax(tmp_path):
     RNG, sample rays and path tracer modules), the textured scene with its
     PNG and JPEG images, the EXR environment light, a train step, and a
     render sharded over a two-device mesh with the tonemap, EXR and
-    distributed modules imported."""
+    distributed modules imported, a net-ray count, and the profiler's
+    stages with the two bench modules imported."""
     code = f"""
 import sys
 import numpy as np
@@ -162,6 +163,10 @@ assert img.shape == (64, 3) and float(img.max()) > 0
 exr.write_exr("frame.exr", tonemap.reinhard_global(
     img.reshape(8, 8, 3).numpy()))
 assert exr.read_exr("frame.exr").shape == (8, 8, 3)
+from raytracer795_tpu_torch import bench, bench_mesh, profiling  # stats
+assert render.count_net_rays(ld, 0) >= 64
+assert [s for s, _, _ in profiling.profile_scene(ld, 8, 1)] == list(
+    profiling.STAGES)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "raytracer795_tpu", "PIL")]
 assert not bad, bad
