@@ -116,7 +116,15 @@ non-zero and prints no result:
    descend; ply_smooth's vertex gradient (``bvh_min_tris=1``, 24x24,
    tests/test_tpu.py:75-128) through the kernels must equal the CPU port's
    through the plain walks at rtol 2e-3, atol 2e-3 max|g|, and two card
-   runs' difference is printed.
+   runs must give the same bits. The gathers' backward (ops/gather.py)
+   at the step's 160k lanes (2 rows of 3, and rock100k's 101,762 triangle
+   records of 31 with long runs on row 0 and two floor rows) must equal
+   the accumulating ``index_put_`` at rtol 1e-5 on gradients that sum
+   exactly in any order, lie within rtol 1e-5 of a float64 sum, repeat
+   bit for bit and keep a NaN lane in its own row; both times are
+   printed, each step's ``indexing_backward*`` ms beside its step over
+   forward, and, on the rock100k step's own lanes, each gather backward's
+   error against a float64 sum beside ``index_put_``'s.
 18. checkpoints, tonemap and EXR, scale-out: rock100k at 800x800 killed
    and resumed from its checkpoint at 4 and 1 spp (bit-equal to the whole
    film, fewer launches), a save's cost a band, the CLI with
@@ -1344,6 +1352,9 @@ def profile_step(fn):
                                  if e.key in HOST_LAUNCHES),
             "kernel_ms": sum(by_name.values()),
             "bvh_kernel_ms": bvh_kernel_ms(by_name),
+            "indexing_backward_ms": sum(
+                ms for k, ms in by_name.items()
+                if "indexing_backward_kernel" in k),
             "top_kernels_ms": {k[:90]: ms for k, ms in top}}
 
 
@@ -1373,12 +1384,14 @@ def train_times(step, forward, card):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     fmed, smed = statistics.median(fwd), statistics.median(stp)
+    prof = profile_step(step)
     return {"forward_median_s": fmed, "forward_s": fwd,
             "step_median_s": smed, "step_s": stp,
             "step_over_forward": smed / fmed,
+            "indexing_backward_ms": prof["indexing_backward_ms"],
             "memory_before_step_mb": base / 2**20,
             "max_memory_allocated_mb": peak / 2**20,
-            "step_profile": profile_step(step), "card": card}
+            "step_profile": prof, "card": card}
 
 
 def descend(step, loss_of, scene, lr, name):
@@ -1434,11 +1447,133 @@ def card_vs_cpu(render, bt, intersect, load_scene, dev):
     bad = int((~torch.isclose(g1, g_cpu, rtol=2e-3, atol=2e-3 * scale)).sum())
     check(bad == 0, f"{bad} card vertex gradients differ from the CPU's "
           f"(max |d| {err}, max |g| {scale})")
+    check(bits_equal(g1, g2), "two card runs' vertex gradients differ by "
+          f"{float((g1 - g2).abs().max())}")
     phase("grad_card_vs_cpu", scene="ply_smooth", res=24,
           vertices=int(g1.shape[0]), max_abs_grad=scale,
           max_abs_diff_card_cpu=err,
           max_abs_diff_card_card=float((g1 - g2).abs().max()),
           card_launches=launches, tolerance="rtol 2e-3, atol 2e-3 max|g|")
+
+
+def gather_backward_phase(dev, card):
+    """``ops/gather.py``'s backward on the card at the train step's lane
+    count against the accumulating ``index_put_`` that ``table[idx]``'s
+    backward is: 2 rows of 3 (a material table, the masked sum) with the
+    lanes spread over both, and rock100k's 101,762 triangle records of 31
+    (the chunked sums) with 60% of the lanes on row 0 (misses and dead
+    lanes) and 25% on two rows (a floor's two triangles). Gradients that
+    are multiples of 1/64 sum exactly in any order, so the two must agree
+    (rtol 1e-5; printed: whether bit for bit); on uniform [0, 1) gradients
+    the new sums must be within rtol 1e-5 of a float64 sum
+    (``index_put_``'s serial sum's error printed beside), two backwards the
+    same bits, and a NaN lane NaN in its own row only. Both times are CUDA
+    events over 20 backwards."""
+    from raytracer795_tpu_torch.ops.gather import gather_rows
+
+    rng = np.random.default_rng(0)
+    n = GRAD_RES * GRAD_RES
+    for rows, cols in ((2, 3), (101762, 31)):
+        idx_np = rng.integers(0, rows, n)
+        if rows > 2:
+            u = rng.random(n)
+            idx_np[u < 0.6] = 0
+            idx_np[(u >= 0.6) & (u < 0.85)] = rows // 2 + (u[(u >= 0.6) & (
+                u < 0.85)] < 0.725)
+        idx = torch.from_numpy(idx_np).to(dev)
+
+        def card_f32(a):
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+        table = card_f32(rng.normal(size=(rows, cols)))
+        exact = card_f32(rng.integers(-64, 65, (n, cols)) / 64.0)
+        noisy = card_f32(rng.random((n, cols)))
+        leaf = table.clone().requires_grad_()
+        out = gather_rows(leaf, idx)
+        check(type(out.grad_fn).__name__ == "_GatherRowsBackward"
+              and torch.equal(out.detach(), table[idx]),
+              "gather_rows under autograd: table[idx]'s values, own backward")
+
+        def ours(g):
+            return torch.autograd.grad(out, leaf, g, retain_graph=True)[0]
+
+        def index_put(g):
+            return torch.zeros_like(table).index_put_((idx,), g,
+                                                      accumulate=True)
+        a, b = ours(exact), index_put(exact)
+        check(torch.allclose(a, b, rtol=1e-5, atol=0),
+              f"{rows}x{cols}: new backward vs index_put_, max |d| "
+              f"{float((a - b).abs().max())}")
+        ref = torch.zeros(rows, cols, dtype=torch.float64,
+                          device=dev).index_put_((idx,), noisy.double(),
+                                                 accumulate=True)
+        o1, o2 = ours(noisy), ours(noisy)
+        named = ref != 0
+
+        def rel(x):
+            return float(((x.double() - ref).abs()[named]
+                          / ref.abs()[named]).max())
+        check(rel(o1) <= 1e-5, f"{rows}x{cols}: new backward vs float64, "
+              f"{rel(o1)}")
+        check(bits_equal(o1, o2), f"{rows}x{cols}: two backwards differ")
+        g = exact.clone()
+        g[17, 1] = float("nan")
+        want_nan = torch.zeros(rows, cols, dtype=torch.bool, device=dev)
+        want_nan[idx_np[17], 1] = True
+        check(torch.equal(torch.isnan(ours(g)), want_nan)
+              and torch.equal(torch.isnan(index_put(g)), want_nan),
+              f"{rows}x{cols}: a NaN lane reaches its own row only")
+        counts = np.bincount(idx_np)
+        phase("gather_backward", rows=rows, cols=cols, lanes=n,
+              longest_run=int(counts.max()),
+              max_abs_diff_index_put=float((a - b).abs().max()),
+              bit_equal_index_put=bits_equal(a, b),
+              rel_err_f64=rel(o1), index_put_rel_err_f64=rel(index_put(noisy)),
+              repeat_bit_equal=True, nan_own_row_only=True,
+              ms=cuda_ms(lambda: ours(exact), 20),
+              index_put_ms=cuda_ms(lambda: index_put(exact), 20),
+              tolerance="rtol 1e-5", card=card)
+
+
+def gather_backward_step(step, card):
+    """Every gather backward of one ``step()``, on its own lanes and
+    gradients: the largest error, relative to a float64 sum, of the new
+    backward and of ``index_put_``'s serial float32 sum (over the entries
+    a lane names, for the masked and the chunked sums apart). Printed
+    only: where a row's lanes cancel, both errors grow."""
+    from raytracer795_tpu_torch.ops import gather
+
+    seen = []
+    backward = gather._GatherRows.backward
+
+    def spy(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        seen.append((idx, grad, ctx.rows))
+        return gather.row_sums(idx, grad, ctx.rows), None
+    gather._GatherRows.backward = staticmethod(spy)
+    try:
+        step()
+    finally:
+        gather._GatherRows.backward = staticmethod(backward)
+    errs = {}
+    for idx, grad, rows in seen:
+        kind = "masked" if rows <= gather.SMALL_ROWS else "chunked"
+        zeros = grad.new_zeros((rows,) + grad.shape[1:])
+        ref = zeros.double().index_put_((idx,), grad.double(),
+                                        accumulate=True)
+        new = gather.row_sums(idx, grad, rows)
+        put = zeros.index_put_((idx,), grad, accumulate=True)
+        named = ref != 0
+        if not bool(named.any()):
+            continue
+        new_err, put_err = (float(((x.double() - ref).abs()[named]
+                                   / ref.abs()[named]).max())
+                            for x in (new, put))
+        was = errs.get(kind, {"calls": 0, "new": 0.0, "index_put": 0.0})
+        errs[kind] = {"calls": was["calls"] + 1,
+                      "new": max(was["new"], new_err),
+                      "index_put": max(was["index_put"], put_err)}
+    phase("gather_backward_step", scene="rock100k", res=GRAD_RES,
+          rel_err_f64=errs, card=card)
 
 
 def gradient_phase(render, bt, intersect, load_scene, dev, card, rock, big):
@@ -1471,6 +1606,7 @@ def gradient_phase(render, bt, intersect, load_scene, dev, card, rock, big):
           vertex_normals_equal_cpu=bool(torch.equal(vn, vn_cpu)),
           vertex_normals_max_abs_diff_cpu=float((vn - vn_cpu).abs().max()))
     del got
+    gather_backward_phase(dev, card)
 
     total = dict.fromkeys(bt.LAUNCHES, 0)
 
@@ -1490,6 +1626,7 @@ def gradient_phase(render, bt, intersect, load_scene, dev, card, rock, big):
     add(rec)
     phase("train_step", scene="rock100k", res=GRAD_RES, **rec,
           **train_times(step, forward, card))
+    gather_backward_step(step, card)
     losses = descend(step, loss_of, scene, TRAIN_LRS, "rock100k lr dict")
     phase("train_descent", scene="rock100k", lr=TRAIN_LRS, losses=losses)
     gv = grads["vertices"]

@@ -12,6 +12,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from raytracer795_tpu_torch.ops.gather import gather_rows
 from raytracer795_tpu_torch.scene import types as T
 from raytracer795_tpu_torch.utils.vec3 import (Vec3, cdiv, vdot,
                                                vsafe_normalize, vwhere)
@@ -33,7 +34,7 @@ def _conductor_fresnel(n_t, k_t, d: Vec3, normal: Vec3):
 
 def _mat3_rows(tbl, idx) -> Vec3:
     """Gather [M, 3] material-table rows into lane components."""
-    rec = tbl[idx.long()]
+    rec = gather_rows(tbl, idx.long())
     return Vec3(rec[:, 0], rec[:, 1], rec[:, 2])
 
 

@@ -36,6 +36,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from raytracer795_tpu_torch.ops.gather import gather_rows
 from raytracer795_tpu_torch.scene import types as T
 from raytracer795_tpu_torch.utils.vec3 import (Mat3, Vec3, cdiv,
                                                const_affine_apply,
@@ -743,7 +744,9 @@ def hit_details(scene: T.Scene, rays: Rays, hit: Hit,
             col(concat("tri_tex0", "n_tris")),              # 29  in f32)
             col(concat("tri_tex1", "n_tris")),              # 30
         ], dim=1)
-        rec = table[tid]                                    # [N, 31]
+        # a lane's record; every miss and dead lane reads row 0, and a
+        # large triangle many lanes, so the backward sums in chunks
+        rec = gather_rows(table, tid)                       # [N, 31]
 
         def v3(k):
             return Vec3(rec[:, k], rec[:, k + 1], rec[:, k + 2])
@@ -798,8 +801,10 @@ def hit_details(scene: T.Scene, rays: Rays, hit: Hit,
         sel = hit.valid & hit.is_sphere
         offs = torch.as_tensor(sph_offs, dtype=torch.int64, device=dev)
         sid = torch.clamp(offs[g] + hit.prim, 0, n_sph_total - 1)
-        center = Vec3.from_array(
-            verts[concat("sph_cidx", "n_spheres").long()[sid]])
+        # the S centres first, then a lane's: a gather from the S rows of
+        # the centres, not from the vertex table
+        center = Vec3.from_array(gather_rows(
+            verts[concat("sph_cidx", "n_spheres").long()], sid))
         radius = concat("sph_radius", "n_spheres")[sid]
         # the winner's t again (quadratic of src/Shape.cpp:347-388)
         oc = local_o - center
