@@ -159,12 +159,36 @@ non-zero and prints no result:
    launched),
    ``bvh_kernel_ms`` > 0 where the cell lists it, and cornellbox_pt
    launches no traversal kernel. Its wall time is printed.
+21. graphed frames (``utils/graphs.py``): cornellbox_pt, rock100k,
+   rock100k_pt, rock1800k, rock100k_tex and instances_rock at 800x800 and
+   their cells' spp (4, 4, 4, 1, 1, 1), each rendered through its
+   captured graphs and op by op (``render_camera(..., _graphs=False)``):
+   float and LDR frames bit for bit, equal traversal launches, no capture
+   for seeds 2 and 3 after seed 1's frames; the captures, the median of 5
+   frames each way, the profiler's kernels and the host's kernel and graph
+   launch calls of one frame each way (the card's kernels alone for the
+   op-by-op frames of ``CARD_ONLY_TRACE``), the peak allocation of the
+   capturing frame (at most ``CAPTURE_PEAK_OVER_EAGER`` times the op-by-op
+   frame's) and of a frame each way, and ``count_net_rays`` each way on
+   ``GRAPH_NET_SCENES`` (equal); then cornellbox_pt killed after 5
+   checkpoint saves and resumed through the graphs, bit for bit the
+   op-by-op film; and rock100k's eager train step at ``GRAD_RES``, in
+   alternating rounds on a scene without programs and on one whose graphed
+   frame captured them: the median step a round and the peak allocation,
+   the losses equal. Its wall time is printed.
+
+Every ``render_camera`` frame on the card runs through captured graphs
+(phase 21 holds them to op-by-op frames); a phase that spies on Python
+calls during a frame (recorded queries, counted draws or row rebuilds,
+the per-group instances dispatch, the plain-walk frame) renders that
+frame op by op.
 
 The ``kernels`` line's launch counts are summed over the main paths that
 run each kernel (phases 4, 7, 8, 11, 15 and 16, phase 17's three train
 steps, forward and backward, phase 18's resumed frames, CLI runs, sharded
-frames and step, phase 19's profile, net counts and benches, and phase
-20's timed frames and steps, each counted from 0). The
+frames and step, phase 19's profile, net counts and benches, phase 20's
+timed frames and steps, and phase 21's graphed frames, each counted from
+0); a graphed frame counts each launch its graphs replay. The
 last three lines are the card, the kernels' JSON record and the result line;
 the wall time is printed on an earlier line. It imports nothing of jax or
 of the JAX package.
@@ -174,6 +198,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import io
 import json
@@ -190,6 +215,7 @@ import zlib
 import numpy as np
 import torch
 
+T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCENES = os.path.join(HERE, "tests", "scenes")
 GOLDENS = os.path.join(HERE, "tests", "goldens")
@@ -266,11 +292,31 @@ VERTEX_STEP_DECREASE = 1e-3
 # the host's kernel launch calls, as the profiler names them
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
+# and its graph launch calls
+GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 # the JAX profiler's stages, in its order (raytracer795_tpu/profiling.py:
 # 70-79), and its default wavefront size
 PROFILE_STAGES = ("ray_gen", "trace", "trace_anyhit", "hit_details",
                   "apply_textures", "direct_lighting", "full_frame")
 PROFILE_RES = 512
+# phase 21's frames: each scene at 800x800 and its benchmark cell's spp
+# (4 for rock100k_pt, 1 for instances_rock, which have no cell)
+GRAPH_RES = 800
+GRAPH_SCENES = (("cornellbox_pt", 4), ("rock100k", 4), ("rock100k_pt", 4),
+                ("rock1800k", 1), ("rock100k_tex", 1), ("instances_rock", 1))
+# the scenes whose op-by-op frame phase 21 traces on the card alone: a
+# host trace of their 130k-170k eager launches takes about a minute
+CARD_ONLY_TRACE = ("cornellbox_pt", "rock100k_pt")
+# the scenes whose net rays phase 21 counts both ways
+GRAPH_NET_SCENES = ("cornellbox_pt", "rock100k")
+# a graphed frame's first (capturing) frame may hold its warm-up and its
+# programs' pool beside the eager frame's peak; a pool per graph would
+# hold one a trip (cornellbox_pt runs 6 bounces, rock100k 3 iterations)
+CAPTURE_PEAK_OVER_EAGER = 4.0
+# phase 21 (c): rounds of the eager train step beside a scene's programs,
+# and the timed steps of each side a round (after one warm-up step)
+STEP_ROUNDS = 4
+STEP_REPS = 8
 
 
 def check(cond, msg):
@@ -279,7 +325,9 @@ def check(cond, msg):
 
 
 def phase(name, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase line; ``t_s`` is the host seconds since the script began."""
+    print(json.dumps({"phase": name, **fields,
+                      "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def card_line() -> str:
@@ -681,9 +729,9 @@ def axis_aligned_case(bt, dev, t=2048, n=EDGE_RAYS, seed=7):
 
 
 def record_queries(render, bt, loaded, spp=None):
-    """Render ``loaded`` once, recording every single-pack traversal query
-    in order: [(kind, args)], kind "nearest" with (tb, o, d, eps) or
-    "anyhit" with (tb, o, d, cap, eps)."""
+    """Render ``loaded`` once op by op, recording every single-pack
+    traversal query in order: [(kind, args)], kind "nearest" with (tb, o,
+    d, eps) or "anyhit" with (tb, o, d, cap, eps)."""
     nearest, anyhit = bt.tri_bvh_nearest, bt.tri_bvh_anyhit
     calls = []
 
@@ -695,8 +743,8 @@ def record_queries(render, bt, loaded, spp=None):
         calls.append(("anyhit", (tb, o, d, cap, eps)))
         return anyhit(tb, o, d, cap, eps)
     bt.tri_bvh_nearest, bt.tri_bvh_anyhit = rec_nearest, rec_anyhit
-    try:
-        render.render_camera(loaded, 0, spp=spp, ldr=True)
+    try:    # op by op: a replayed graph calls no Python
+        render.render_camera(loaded, 0, spp=spp, ldr=True, _graphs=False)
     finally:
         bt.tri_bvh_nearest, bt.tri_bvh_anyhit = nearest, anyhit
     return calls
@@ -832,8 +880,9 @@ def bvh_kernel_ms(by_name):
 def profile_frame(render, ld, median_s, draw_s):
     """One LDR frame (after a warm-up) traced on the card: kernels run and
     device kernel time, the device's busy share of the unprofiled median
-    frame, and the RNG's draws with their estimated share of that frame
-    (draws x the host seconds of one band-sized draw)."""
+    frame, and the RNG's draws (counted over a frame rendered op by op)
+    with their estimated share of that frame (draws x the host seconds of
+    one band-sized draw)."""
     from raytracer795_tpu_torch.utils import rng
 
     draws = [0]
@@ -843,32 +892,34 @@ def profile_frame(render, ld, median_s, draw_s):
         draws[0] += 1
         return uniform(*args)
     rng.uniform = counted
-    try:
-        render.render_camera(ld, 0, ldr=True)
-        draws[0] = 0
-        kernels, kernel_ms, by_name = profile_launches(
-            lambda: render.render_camera(ld, 0, ldr=True))
+    try:    # the draws of a frame op by op: a replay calls no Python
+        render.render_camera(ld, 0, ldr=True, _graphs=False)
     finally:
         rng.uniform = uniform
+    render.render_camera(ld, 0, ldr=True)
+    kernels, kernel_ms, by_name = profile_launches(
+        lambda: render.render_camera(ld, 0, ldr=True))
     bvh_ms = bvh_kernel_ms(by_name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"kernels_run": kernels, "kernel_ms": kernel_ms,
             "busy_share_of_median": kernel_ms / 1e3 / median_s,
             "bvh_kernel_ms": bvh_ms,
-            "bvh_share_of_device": sum(bvh_ms.values()) / kernel_ms,
+            "bvh_share_of_device": sum(bvh_ms.values())
+            / max(kernel_ms, 1e-9),
             "top_kernels_ms": {k[:70]: ms for k, ms in top},
             "rng_draws": draws[0],
             "rng_share_of_median_est": draws[0] * draw_s / median_s}
 
 
-def frame_times(render, ld, reps=FRAME_REPS):
-    """Host seconds of ``reps`` LDR frames after one warm-up frame."""
-    render.render_camera(ld, 0, ldr=True)
+def frame_times(render, ld, reps=FRAME_REPS, graphed=None):
+    """Host seconds of ``reps`` LDR frames after one warm-up frame;
+    ``graphed`` is ``render_camera``'s ``_graphs``."""
+    render.render_camera(ld, 0, ldr=True, _graphs=graphed)
     secs = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = render.render_camera(ld, 0, ldr=True)
+        out = render.render_camera(ld, 0, ldr=True, _graphs=graphed)
         secs.append(time.perf_counter() - t0)
     check(out.shape == (ld.cameras[0].ny, ld.cameras[0].nx, 3), "frame shape")
     return secs
@@ -1123,8 +1174,9 @@ def rock_pt_phase(render, bt, intersect, load_scene, dev, card, per_draw,
     bt.tri_bvh_anyhit = lambda tb, o, d, cap, eps: intersect._tri_bvh_anyhit(
         bt.decode(tb), o, d, cap, eps)
     try:
-        bt.reset_launch_counts()
-        through_plain = render.render_camera(small, 0, spp=2, ldr=True)
+        bt.reset_launch_counts()     # op by op: a plain walk syncs
+        through_plain = render.render_camera(small, 0, spp=2, ldr=True,
+                                             _graphs=False)
         plain_launches = dict(bt.LAUNCHES)
     finally:
         bt.tri_bvh_nearest, bt.tri_bvh_anyhit = nearest, anyhit
@@ -1209,8 +1261,8 @@ def texture_phase(render, bt, intersect, load_scene, read_ppm, dev, card,
         calls.append((scene, det))
         return apply(scene, det)
     whitted.apply_textures = recorded
-    try:
-        render.render_camera(rt, 0, ldr=True)
+    try:    # op by op: a replay calls no Python
+        render.render_camera(rt, 0, ldr=True, _graphs=False)
     finally:
         whitted.apply_textures = apply
     check(len(calls) >= 2, f"{len(calls)} texture calls recorded")
@@ -1220,9 +1272,9 @@ def texture_phase(render, bt, intersect, load_scene, read_ppm, dev, card,
     phase("profile", scene="rock100k_tex", res=MS_RES, spp=1, **prof,
           texture_calls=len(calls), texture_kernels=tex_kernels,
           texture_kernel_ms=tex_ms,
-          texture_share_of_device=tex_ms / prof["kernel_ms"],
+          texture_share_of_device=tex_ms / max(prof["kernel_ms"], 1e-9),
           kernels_over_rock100k=prof["kernels_run"]
-          / plain_prof["kernels_run"], card=card)
+          / max(plain_prof["kernels_run"], 1), card=card)
     return launches
 
 
@@ -2145,6 +2197,190 @@ def benchmark_phase(dev, rock, big, big_load_s):
     return total
 
 
+def frame_trace(fn, host=True):
+    """Kernels ``fn()`` runs on the card, their device ms, and the host's
+    kernel and graph launch calls (torch.profiler on the host and the
+    card; on the card alone without ``host``, the host's calls None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host else [])) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    return {"kernels_run": sum(e.count for e in kernels),
+            "kernel_ms": sum(getattr(e, "self_device_time_total", getattr(
+                e, "self_cuda_time_total", 0)) for e in kernels) / 1e3,
+            "host_kernel_launches": sum(e.count for e in events
+                                        if e.key in HOST_LAUNCHES)
+            if host else None,
+            "host_graph_launches": sum(e.count for e in events
+                                       if e.key in GRAPH_LAUNCHES)
+            if host else None}
+
+
+def frame_peak_mb(fn) -> float:
+    """MB the card's allocations rose to above their level before
+    ``fn()``."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 1e6
+
+
+def graphed_resume_phase(render, ld, spp, abort_after):
+    """Phase 21 (b): ``ld`` killed after ``abort_after`` checkpoint saves
+    and resumed, both through the graphs, against its frame rendered op by
+    op: bit for bit."""
+    whole = render.render_camera(ld, 0, spp=spp, _graphs=False)
+    path = os.path.join(OUT, "ckpt", "graphed.ckpt.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    try:
+        render.render_camera(ld, 0, spp=spp, checkpoint=render.FilmCheckpoint(
+            path, every_s=0.0), _abort_after_saves=abort_after)
+        check(False, "the graphed render was not killed")
+    except KeyboardInterrupt:
+        pass
+    row0 = int(np.load(path)["row0"])
+    resumed = render.render_camera(
+        ld, 0, spp=spp, checkpoint=render.FilmCheckpoint(path, every_s=0.0))
+    check(bits_equal(resumed, whole), "the graphed resumed film differs "
+          "from the op-by-op one")
+    return row0
+
+
+def graphs_phase(render, bt, load_scene, dev, card, big):
+    """Phase 21: every frame through its captured graphs (utils/graphs.py)
+    against the same frame op by op, on the six scenes of
+    ``GRAPH_SCENES`` at 800x800: float and LDR frames bit for bit, equal
+    traversal launches, no capture for seeds 2 and 3 after seed 1's float
+    and LDR frames; the medians of 5 frames each way, the profiler's
+    kernels and the host's launch calls of one frame each way, the peak
+    allocation of the capturing frame and of one frame each way, and
+    ``count_net_rays`` each way. Then a graphed kill and resume of
+    cornellbox_pt. Returns the graphed frames' traversal launches."""
+    from raytracer795_tpu_torch.bench import with_frame
+    from raytracer795_tpu_torch.utils import graphs
+
+    total = dict.fromkeys(bt.LAUNCHES, 0)
+    reuse = {"rock1800k": big}      # captured at 800x800 in phase 20
+    for name, spp in GRAPH_SCENES:
+        ld = with_frame(reuse.get(name) or load_scene(
+            os.path.join(SCENES, name + ".xml"), dev), GRAPH_RES, spp)
+        progs = graphs.programs(ld.scene)
+        before = progs.captures()
+        t0 = time.perf_counter()
+        capture_mb = frame_peak_mb(
+            lambda: render.render_camera(ld, 0, seed=1, ldr=True))
+        first_s = time.perf_counter() - t0
+        render.render_camera(ld, 0, seed=1)     # the float film's tails
+        captures = progs.captures() - before
+        floats, ldrs, launches, peak = {}, {}, {}, {}
+        for graphed in (True, False):
+            bt.reset_launch_counts()
+            peak[graphed] = frame_peak_mb(lambda: floats.__setitem__(
+                graphed, render.render_camera(ld, 0, seed=2,
+                                              _graphs=graphed)))
+            launches[graphed] = dict(bt.LAUNCHES)
+            if graphed:
+                add_launches(total, bt)
+            ldrs[graphed] = render.render_camera(ld, 0, seed=2, ldr=True,
+                                                 _graphs=graphed)
+        check(bits_equal(floats[True], floats[False]),
+              f"{name}: the graphed float frame differs from op by op")
+        check(np.array_equal(ldrs[True], ldrs[False]),
+              f"{name}: the graphed LDR frame differs from op by op")
+        check(launches[True] == launches[False],
+              f"{name}: launches graphed {launches[True]}, op by op "
+              f"{launches[False]}")
+        render.render_camera(ld, 0, seed=3)
+        render.render_camera(ld, 0, seed=3, ldr=True)
+        again = progs.captures() - before - captures
+        check(again == 0, f"{name}: seeds 2 and 3 captured {again} graphs "
+              "that seed 1 did not")
+        secs = {g: frame_times(render, ld, graphed=g) for g in (True, False)}
+        med = {g: statistics.median(v) for g, v in secs.items()}
+        check(capture_mb <= CAPTURE_PEAK_OVER_EAGER * peak[False] + 64,
+              f"{name}: the capturing frame peaked at {capture_mb} MB, the "
+              f"op-by-op frame at {peak[False]} MB")
+        traced = {g: frame_trace(lambda: render.render_camera(
+            ld, 0, seed=2, ldr=True, _graphs=g),
+            host=g or name not in CARD_ONLY_TRACE) for g in (True, False)}
+        nets = {g: render.count_net_rays(ld, 0, seed=4, _graphs=g)
+                for g in (True, False)} if name in GRAPH_NET_SCENES else {}
+        check(len(set(nets.values())) <= 1, f"{name}: net rays {nets}")
+        side = {True: "graphed", False: "op_by_op"}
+        phase("graphs", scene=name, res=GRAPH_RES, spp=spp,
+              captures=captures, captures_second_seed=again,
+              first_frame_s=first_s, float_bits_equal=True, ldr_equal=True,
+              launches=launches[True],
+              median_s={side[g]: med[g] for g in med},
+              samples_s={side[g]: secs[g] for g in secs},
+              speedup=med[False] / med[True],
+              trace={side[g]: traced[g] for g in traced},
+              peak_mem_mb={side[g]: peak[g] for g in peak},
+              capture_peak_mem_mb=capture_mb,
+              reserved_mb=torch.cuda.memory_reserved() / 1e6,
+              net_rays=nets.get(True), card=card)
+        if name == "cornellbox_pt":
+            cam = ld.cameras[0]
+            row0 = graphed_resume_phase(render, ld, spp, 5)
+            phase("graphs_checkpoint_resume", scene=name, res=cam.nx,
+                  spp=spp, killed_after_saves=5, resumed_from_row=row0,
+                  resumed_equals_op_by_op=True)
+    return total
+
+
+def step_beside_programs(render, bt, intersect, rock, card):
+    """Phase 21 (c): rock100k's eager train step (``train_cell``'s, lr 0)
+    in ``STEP_ROUNDS`` rounds of one process, the sides' order alternating,
+    each side on a new ``Scene`` object of the same tensors: one without
+    programs, and one whose graphed GRAD_RES frame captured them first (as
+    the benchmark's train cell renders its target frame). A side's medians
+    of ``STEP_REPS`` steps a round and its peak allocations above the
+    level before its scene was made; the two sides' losses must be
+    equal."""
+    from raytracer795_tpu_torch.bench import with_frame
+    from raytracer795_tpu_torch.parallel import shard as par
+
+    _, _, step, _, _ = train_cell(render, bt, intersect, par, rock,
+                                  "rock100k")
+    side = {False: "no_programs", True: "with_programs"}
+    rec = {v: {"median_ms": [], "peak_mb": []} for v in side.values()}
+    losses = set()
+    for r in range(STEP_ROUNDS):
+        for programs in ((False, True) if r % 2 == 0 else (True, False)):
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            sc = dataclasses.replace(rock.scene)
+            if programs:
+                render.render_camera(with_frame(dataclasses.replace(
+                    rock, scene=sc), GRAD_RES, 1), 0, seed=1)
+            torch.cuda.reset_peak_memory_stats()
+            losses_of = []
+            secs = host_seconds(lambda: losses_of.append(step(sc)[0]),
+                                STEP_REPS)
+            peak = torch.cuda.max_memory_allocated() - before
+            losses.update(float(x) for x in losses_of)
+            rec[side[programs]]["median_ms"].append(
+                statistics.median(secs) * 1e3)
+            rec[side[programs]]["peak_mb"].append(peak / 1e6)
+            del sc
+    check(len(losses) == 1, f"the step's losses differ: {losses}")
+    phase("train_step_beside_programs", scene="rock100k", res=GRAD_RES,
+          rounds=STEP_ROUNDS, steps=STEP_REPS, **rec, loss=losses.pop(),
+          card=card)
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     # ---- 1. device ----
@@ -2342,7 +2578,7 @@ def main() -> int:
     # one profiled rock1800k frame; the triangle-row rebuild of every
     # query (build_multi_tables) timed alone and counted over the frame
     with counting(bt, ("_tri_rows",)) as rebuilds:
-        render.render_camera(big, 0, ldr=True)
+        render.render_camera(big, 0, ldr=True, _graphs=False)
     rebuild_ms = cuda_ms(lambda: bt._tri_rows(big.scene.vertices,
                                               bgroup.tri_vidx), 5)
     phase("profile", scene="rock1800k", res=400, spp=1,
@@ -2373,19 +2609,22 @@ def main() -> int:
           card=card)
 
     # instances_rock frames: batched (the main path) against per-group
-    # launches, the latter by leaving the dispatch no clusters
+    # launches, the latter by leaving the dispatch no clusters; op by op
+    # both (the scene's captured programs hold the batched dispatch)
     batched = frame_times(render, inst)
+    batched_eager = frame_times(render, inst, graphed=False)
     clusters_fn = intersect._pack_clusters
     intersect._pack_clusters = lambda scene: {}
     try:
         bt.reset_launch_counts()
-        render.render_camera(inst, 0, ldr=True)
+        render.render_camera(inst, 0, ldr=True, _graphs=False)
         per_group_launches = dict(bt.LAUNCHES)
-        per_group = frame_times(render, inst)
+        per_group = frame_times(render, inst, graphed=False)
     finally:
         intersect._pack_clusters = clusters_fn
     phase("instances_time", scene="instances_rock", res=400,
           batched_median_s=statistics.median(batched), batched_s=batched,
+          batched_op_by_op_median_s=statistics.median(batched_eager),
           batched_launches=inst_launches,
           per_group_median_s=statistics.median(per_group),
           per_group_s=per_group, per_group_launches=per_group_launches,
@@ -2425,12 +2664,19 @@ def main() -> int:
     bench_launches = benchmark_phase(dev, loaded, big, load_s)
     phase("phase20_wall", seconds=time.perf_counter() - t0,
           launches=bench_launches)
+    # ---- 21. graphed frames against op-by-op ones ----
+    t0 = time.perf_counter()
+    graph_launches = graphs_phase(render, bt, load_scene, dev, card, big)
+    step_beside_programs(render, bt, intersect, loaded, card)
+    phase("phase21_wall", seconds=time.perf_counter() - t0,
+          launches=graph_launches)
     for k in ("nearest", "anyhit"):
         launches[k] += (inst_launches[k] + ms_launches[k] + pt_launches[k]
                         + big_launches[k] + tex_launches[k])
     for k in REPLACES:
         launches[k] += (grad_launches[k] + scale_launches[k]
-                        + stats_launches[k] + bench_launches[k])
+                        + stats_launches[k] + bench_launches[k]
+                        + graph_launches[k])
     err_by["nearest"] = max(err_by["nearest"], pt_err)
     err_by["anyhit"] = max(err_by["anyhit"], pt_bad)
 

@@ -47,7 +47,7 @@ from raytracer795_tpu_torch.models.whitted import (_conductor_fresnel,
 from raytracer795_tpu_torch.ops import intersect
 from raytracer795_tpu_torch.ops.texture import apply_textures
 from raytracer795_tpu_torch.scene import types as T
-from raytracer795_tpu_torch.utils import rng
+from raytracer795_tpu_torch.utils import graphs, rng
 from raytracer795_tpu_torch.utils.vec3 import (Vec3, cdiv, const_mat3_apply,
                                                sqrt,
                                                vany_nan, vcross, vdot, vnorm,
@@ -208,9 +208,31 @@ def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
     JAX package's count: the bounces it runs after the last lane died add
     0. The radiance is the same bits.
     """
+    if graphs.active() and not torch.is_grad_enabled() \
+            and rays.time.shape[0]:
+        # the bounces through their captured programs (utils/graphs.py)
+        state, _, _ = graphs.run_lanes(scene, rays, bg_radiance, key, _start,
+                                       _bounce, _live,
+                                       max(scene.max_depth, 1), with_stats,
+                                       "path_tracer")
+        radiance = state.radiance.to_array()
+        return (radiance, state.net.clone()) if with_stats else radiance
+    state, vertex_normals = _start(scene, rays, with_stats)
+    ckpt = torch.is_grad_enabled()
+    for i in range(max(scene.max_depth, 1)):
+        if i and not bool(_live(state)):
+            break       # later bounces would add nothing: keys are per bounce
+        args = (scene, rays.time, bg_radiance, key, vertex_normals, state, i)
+        state = (checkpoint(_bounce, *args, use_reentrant=False) if ckpt
+                 else _bounce(*args))
+    radiance = state.radiance.to_array()
+    return (radiance, state.net) if with_stats else radiance
+
+
+def _start(scene: T.Scene, rays: intersect.Rays, with_stats: bool = False):
+    """The first bounce's state and the scene's vertex normals."""
     N = rays.o.x.shape[0]
     dev = rays.o.x.device
-    vertex_normals = intersect.compute_vertex_normals(scene)
     state = _PTState(
         active=torch.ones((N,), dtype=torch.bool, device=dev),
         count_emission=torch.ones((N,), dtype=torch.bool, device=dev),
@@ -218,15 +240,12 @@ def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
         sigma=Vec3.zeros((N,), dev), radiance=Vec3.zeros((N,), dev),
         net=(torch.zeros((), dtype=torch.int64, device=dev) if with_stats
              else None))
-    ckpt = torch.is_grad_enabled()
-    for i in range(max(scene.max_depth, 1)):
-        if i and not bool(state.active.any()):
-            break       # later bounces would add nothing: keys are per bounce
-        args = (scene, rays.time, bg_radiance, key, vertex_normals, state, i)
-        state = (checkpoint(_bounce, *args, use_reentrant=False) if ckpt
-                 else _bounce(*args))
-    radiance = state.radiance.to_array()
-    return (radiance, state.net) if with_stats else radiance
+    return state, intersect.compute_vertex_normals(scene)
+
+
+def _live(s: _PTState) -> torch.Tensor:
+    """Whether a lane continues (0-d bool)."""
+    return s.active.any()
 
 
 def _bounce(scene: T.Scene, time: torch.Tensor, bg: Vec3, key: rng.Key,
@@ -355,8 +374,8 @@ def _bounce(scene: T.Scene, time: torch.Tensor, bg: Vec3, key: rng.Key,
     # the JAX package, and is clipped as jnp.clip is (an even split of the
     # gradient where tput_max sits on a bound)
     if scene.pt_rr and i >= 1:
-        q = torch.minimum(torch.maximum(tput_max, tput_max.new_tensor(0.05)),
-                          tput_max.new_tensor(1.0))
+        q = torch.minimum(torch.maximum(tput_max, tput_max.new_full((), 0.05)),
+                          tput_max.new_full((), 1.0))
         live = rng.uniform(rng.fold_in(k_iter, 4), (N,), dev) < q
         tput = vwhere(cont & live, tput * (1.0 / q), tput)
         cont = cont & live

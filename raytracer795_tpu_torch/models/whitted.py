@@ -52,7 +52,7 @@ from raytracer795_tpu_torch.models.lights import ShadePoint, direct_lighting
 from raytracer795_tpu_torch.ops import intersect
 from raytracer795_tpu_torch.ops.texture import apply_textures
 from raytracer795_tpu_torch.scene import types as T
-from raytracer795_tpu_torch.utils import rng
+from raytracer795_tpu_torch.utils import graphs, rng
 from raytracer795_tpu_torch.utils.vec3 import (Vec3, sqrt, vany_nan, vcross,
                                                vdot, vmasked_normalize,
                                                vorthonormal_u, vreflect,
@@ -192,14 +192,37 @@ def render_rays(scene: T.Scene, rays: intersect.Rays, bg_radiance: Vec3,
     """
     if not differentiable:
         with torch.no_grad():
-            radiance, _, net = _render_machine(
-                scene, rays, bg_radiance, key, iteration_bound(scene),
-                with_stats)
+            if graphs.active() and rays.time.shape[0]:
+                radiance, net = _render_graphed(scene, rays, bg_radiance, key,
+                                                with_stats)
+            else:
+                radiance, _, net = _render_machine(
+                    scene, rays, bg_radiance, key, iteration_bound(scene),
+                    with_stats)
     else:
         trips = iteration_bound(scene) if max_iters is None else max_iters
         radiance, _, net = _render_machine(scene, rays, bg_radiance, key,
                                            trips, with_stats)
     return (radiance, net) if with_stats else radiance
+
+
+def _render_graphed(scene: T.Scene, rays: intersect.Rays, bg: Vec3,
+                    key: rng.Key, with_stats: bool):
+    """The lane machine through its captured programs (utils/graphs.py):
+    the same iterations, each a replay, the same early exit."""
+    bound = iteration_bound(scene)
+    state, it, still = graphs.run_lanes(scene, rays, bg, key, _start,
+                                        _iteration, _live, bound,
+                                        with_stats, "whitted")
+    if it == bound and still:
+        _warn_dropped(bound)
+    return (state.radiance.to_array(),
+            state.net.clone() if with_stats else None)
+
+
+def _warn_dropped(max_iters: int):
+    warnings.warn(f"Whitted lanes still live at the {max_iters}-iteration "
+                  "bound; their remaining ray trees are dropped")
 
 
 def forward_iteration_count(scene: T.Scene, rays: intersect.Rays,
@@ -213,15 +236,11 @@ def forward_iteration_count(scene: T.Scene, rays: intersect.Rays,
                                iteration_bound(scene))[1]
 
 
-def _render_machine(scene: T.Scene, rays: intersect.Rays, bg: Vec3,
-                    key: rng.Key, max_iters: int, with_stats: bool = False):
-    """Runs the lane machine for at most ``max_iters`` iterations, each
-    checkpointed when autograd is on; returns (radiance [N, 3],
-    iterations, net rays or None without stats)."""
+def _start(scene: T.Scene, rays: intersect.Rays, with_stats: bool = False):
+    """The lane machine's first state and the scene's vertex normals."""
     N = rays.o.x.shape[0]
     dev = rays.o.x.device
     D = max(scene.max_depth, 1)
-    vertex_normals = intersect.compute_vertex_normals(scene)
     state = _State(
         active=torch.ones((N,), dtype=torch.bool, device=dev),
         is_primary=torch.ones((N,), dtype=torch.bool, device=dev),
@@ -236,21 +255,30 @@ def _render_machine(scene: T.Scene, rays: intersect.Rays, bg: Vec3,
         st_sigma=Vec3.zeros((D, N), dev),
         net=(torch.zeros((), dtype=torch.int64, device=dev) if with_stats
              else None))
+    return state, intersect.compute_vertex_normals(scene)
 
-    def live(s: _State) -> bool:
-        return bool(torch.any(s.active | (s.sp > 0)))
 
+def _live(s: _State) -> torch.Tensor:
+    """Whether a lane has a current or a deferred ray (0-d bool)."""
+    return torch.any(s.active | (s.sp > 0))
+
+
+def _render_machine(scene: T.Scene, rays: intersect.Rays, bg: Vec3,
+                    key: rng.Key, max_iters: int, with_stats: bool = False):
+    """Runs the lane machine for at most ``max_iters`` iterations, each
+    checkpointed when autograd is on; returns (radiance [N, 3],
+    iterations, net rays or None without stats)."""
+    state, vertex_normals = _start(scene, rays, with_stats)
     ckpt = torch.is_grad_enabled()
     it = 0
-    while it < max_iters and live(state):
+    while it < max_iters and bool(_live(state)):
         args = (scene, rays.time, bg, key, vertex_normals, state, it)
         state = (checkpoint(_iteration, *args, use_reentrant=False) if ckpt
                  else _iteration(*args))
         it += 1
 
-    if it == max_iters and live(state):
-        warnings.warn(f"Whitted lanes still live at the {max_iters}-iteration "
-                      "bound; their remaining ray trees are dropped")
+    if it == max_iters and bool(_live(state)):
+        _warn_dropped(max_iters)
     return state.radiance.to_array(), it, state.net
 
 

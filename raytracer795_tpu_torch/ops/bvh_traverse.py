@@ -46,6 +46,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from raytracer795_tpu_torch.ops import intersect
 from raytracer795_tpu_torch.scene import types as T
+from raytracer795_tpu_torch.utils import graphs
 from raytracer795_tpu_torch.utils.vec3 import Vec3
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,7 +56,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# launches per kernel, counted where each wrapper launches its kernel
+# launches per kernel, counted where each wrapper launches its kernel, or,
+# for a launch captured into a CUDA graph, where the graph replays it
+# (``utils/graphs.count_launch``)
 LAUNCHES = {"nearest": 0, "anyhit": 0, "nearest_multi": 0,
             "anyhit_multi": 0}
 # pointer arguments of each C entry point before and after its two ints:
@@ -516,13 +519,14 @@ def _kernel_args(tb, o: Vec3, d: Vec3, int_eps, extra=()):
 
 
 def _launch(name: str, *args):
-    """Launch kernel ``rt795_bvh_<name>`` on the current stream; count it."""
+    """Launch kernel ``rt795_bvh_<name>`` on the current stream (or record
+    it into the graph being captured there); count it."""
     lib, _, _ = build_kernels()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, f"rt795_bvh_{name}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    graphs.count_launch(LAUNCHES, name)
 
 
 def _ray_counter(device):

@@ -35,6 +35,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from raytracer795_tpu_torch.ops.gather import gather_rows
 from raytracer795_tpu_torch.scene import types as T
@@ -46,6 +47,9 @@ from raytracer795_tpu_torch.utils.vec3 import (Mat3, Vec3, cdiv,
                                                vwhere)
 
 _BIG = 3.0e38
+
+# each scene's primitive offsets (``_prim_offsets``)
+_OFFSETS = WeakIdKeyDictionary()
 
 # Primitive-chunk width of the brute sweeps: bounds the [N, C] temporaries
 # at the 2^18-lane bands of render.py. The chunking changes no result.
@@ -580,9 +584,10 @@ def trace_anyhit(scene: T.Scene, rays: Rays, t_cap) -> torch.Tensor:
     with torch.no_grad():
         N = rays.o.x.shape[0]
         dev = rays.o.x.device
-        t_cap = torch.broadcast_to(
-            torch.as_tensor(t_cap, dtype=torch.float32, device=dev),
-            (N,)).contiguous()
+        # a Python cap is filled on the device: no host-to-device copy
+        t_cap = (torch.broadcast_to(t_cap, (N,)).contiguous()
+                 if isinstance(t_cap, torch.Tensor) else
+                 torch.full((N,), float(t_cap), device=dev))
         found = torch.zeros((N,), dtype=torch.bool, device=dev)
         batched = set()
         for gis in _pack_clusters(scene).values():
@@ -618,7 +623,10 @@ def compute_vertex_normals(scene: T.Scene) -> torch.Tensor:
     triangles in triangle order, so a frame is the same bits every time:
     ``index_add`` does so on the CPU, but adds with atomics on CUDA, where
     an accumulating ``index_put`` sorts instead (and on the CPU, with
-    several threads, it does not keep the order).
+    several threads, it does not keep the order). Without autograd, CUDA
+    takes that kernel without its index range check, which reads the
+    indices' bounds back to the host: a captured graph could not hold it,
+    and the indices are the scene's own.
     """
     verts = scene.vertices
     acc = torch.zeros_like(verts)
@@ -637,13 +645,31 @@ def compute_vertex_normals(scene: T.Scene) -> torch.Tensor:
         w = (group.tri_smooth & (sq[:, 0] > 0)).to(verts.dtype)[:, None]
         n = n * w
         for k in range(3):
-            if verts.device.type == "cuda":
+            if verts.device.type == "cuda" and not torch.is_grad_enabled():
+                acc = torch.ops.aten._index_put_impl_(
+                    acc, [vidx[:, k]], n, accumulate=True, unsafe=True)
+            elif verts.device.type == "cuda":
                 acc = acc.index_put((vidx[:, k],), n, accumulate=True)
             else:
                 acc = acc.index_add(0, vidx[:, k], n)
     sq = (acc[:, 0] * acc[:, 0] + acc[:, 1] * acc[:, 1]
           + acc[:, 2] * acc[:, 2])[:, None]
     return acc / sqrt(torch.where(sq > 0, sq, 1.0))
+
+
+def _prim_offsets(scene: T.Scene):
+    """Each group's first triangle and first sphere in the concatenated
+    tables, [G + 1] int64 each on the scene's device: copied there once
+    per scene, so ``hit_details`` makes no host-to-device copy (which a
+    captured graph could not hold)."""
+    got = _OFFSETS.get(scene)
+    if got is None:
+        got = _OFFSETS[scene] = tuple(
+            torch.as_tensor(np.cumsum([0] + [getattr(gr, n) for gr in
+                                             scene.groups]),
+                            dtype=torch.int64, device=scene.device)
+            for n in ("n_tris", "n_spheres"))
+    return got
 
 
 def hit_details(scene: T.Scene, rays: Rays, hit: Hit,
@@ -707,10 +733,9 @@ def hit_details(scene: T.Scene, rays: Rays, hit: Hit,
         local_d = mv3.apply(rays.d)
         lane_minv_t = lane_mat3(trec, 3)
 
-    tri_offs = np.cumsum([0] + [gr.n_tris for gr in groups])
-    sph_offs = np.cumsum([0] + [gr.n_spheres for gr in groups])
-    n_tris_total = int(tri_offs[-1])
-    n_sph_total = int(sph_offs[-1])
+    tri_offs, sph_offs = _prim_offsets(scene)
+    n_tris_total = sum(gr.n_tris for gr in groups)
+    n_sph_total = sum(gr.n_spheres for gr in groups)
 
     def concat(field, kind):
         return torch.cat([getattr(gr, field) for gr in groups
@@ -718,8 +743,7 @@ def hit_details(scene: T.Scene, rays: Rays, hit: Hit,
 
     if n_tris_total:
         sel = hit.valid & ~hit.is_sphere
-        offs = torch.as_tensor(tri_offs, dtype=torch.int64, device=dev)
-        tid = torch.clamp(offs[g] + hit.prim, 0, n_tris_total - 1)
+        tid = torch.clamp(tri_offs[g] + hit.prim, 0, n_tris_total - 1)
         # one [T, 31] record per triangle, gathered once per lane
         vidx_t = concat("tri_vidx", "n_tris").long()
         i0t, i1t, i2t = vidx_t[:, 0], vidx_t[:, 1], vidx_t[:, 2]
@@ -799,8 +823,7 @@ def hit_details(scene: T.Scene, rays: Rays, hit: Hit,
 
     if n_sph_total:
         sel = hit.valid & hit.is_sphere
-        offs = torch.as_tensor(sph_offs, dtype=torch.int64, device=dev)
-        sid = torch.clamp(offs[g] + hit.prim, 0, n_sph_total - 1)
+        sid = torch.clamp(sph_offs[g] + hit.prim, 0, n_sph_total - 1)
         # the S centres first, then a lane's: a gather from the S rows of
         # the centres, not from the vertex table
         center = Vec3.from_array(gather_rows(

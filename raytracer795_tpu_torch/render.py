@@ -19,6 +19,15 @@ resumes in the other. Cameras with a ``<Tonemap>`` get ``reinhard_global``
 before their PNG or PPM is written; other names are written as half-float
 EXR.
 
+On a CUDA device every band runs through captured programs
+(``utils/graphs.py``), the counterpart of the JAX package's jitted band
+functions: the camera, the band's rows and the sample count are static and
+the key, ``row0`` and ``base`` are device inputs, so each band shape
+captures its graphs once (the rays and background, each iteration or
+bounce of the integrator, the tail) and every later band, chunk and frame
+replays them. The graphs replay the eager path's kernels, so a frame has
+the same bits either way. The CPU renders op by op.
+
 Frames build no autograd graph: ``render_band`` and
 ``render_sample_range`` run under ``torch.no_grad()``, while the
 integrators themselves are differentiable (``parallel/shard.py`` takes
@@ -61,11 +70,13 @@ from raytracer795_tpu_torch.ops import bvh_traverse, intersect
 from raytracer795_tpu_torch.ops.texture import sample_image
 from raytracer795_tpu_torch.scene import types as T
 from raytracer795_tpu_torch.scene.loader import load_scene
-from raytracer795_tpu_torch.utils import image_io, rng
+from raytracer795_tpu_torch.utils import graphs, image_io, rng
 from raytracer795_tpu_torch.utils.tonemap import reinhard_global
 from raytracer795_tpu_torch.utils.vec3 import Vec3, cdiv
 
-# Max lanes per band (the JAX package's budget; not yet retuned for the card)
+# Max lanes per band (the JAX package's budget; not yet retuned for the
+# card). On CUDA it is also the lane count of the band's graphs: the
+# integrators' lane state, and so their programs' memory, scale with it.
 MAX_LANES = 1 << 18
 
 
@@ -119,6 +130,52 @@ def _background_radiance(scene: T.Scene, cam: T.Camera,
     return Vec3(bg[0].expand(n), bg[1].expand(n), bg[2].expand(n))
 
 
+def _band_rays(scene: T.Scene, cam: T.Camera, px: torch.Tensor,
+               py: torch.Tensor, key=None, base=0, count: int = 0):
+    """Rays and miss radiance of a band's lanes at pixels (px, py):
+    center-of-pixel rays (``count`` 0), or samples [base, base + count) of
+    each pixel jittered from ``key``."""
+    if count:
+        rays = camera_model.sample_rays_at(cam, key, px, py, base, count)
+    else:
+        rays = camera_model.primary_rays_at(cam, px, py)
+    return rays, _background_radiance(scene, cam, rays, px, py, count)
+
+
+def _band_key(cam: T.Camera, rows: int, key, row0: int):
+    """The key a band's samples draw from: ``key`` folded with ``row0``
+    when the frame has several bands (decorrelating them); a full frame
+    keeps the stream."""
+    return rng.fold_in(key, row0) if rows < cam.ny else key
+
+
+def _sample_sums(out: torch.Tensor, count: int) -> torch.Tensor:
+    """Lane-ordered samples [N * count, 3] -> each pixel's sum [N, 3], its
+    samples added in order."""
+    out = out.reshape(-1, count, 3)
+    acc = out[:, 0]
+    for k in range(1, count):
+        acc = acc + out[:, k]
+    return acc
+
+
+def _film_values(x: torch.Tensor, total: int, ldr: bool) -> torch.Tensor:
+    """A band's film values: ``x`` over ``total`` (a mean of sums above 1
+    spp), LDR-quantized with ``ldr``."""
+    if total > 1:
+        x = cdiv(x, total)
+    if ldr:
+        x = torch.clamp(x, 0.0, 255.0).to(torch.uint8)
+    return x
+
+
+def _unswizzled(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Lane-ordered values -> row-major pixel order."""
+    flat = torch.empty_like(x)
+    flat[idx] = x
+    return flat
+
+
 @torch.no_grad()
 def render_band(scene: T.Scene, cam: T.Camera, px: torch.Tensor,
                 py: torch.Tensor, key: rng.Key, integrate=None
@@ -126,8 +183,7 @@ def render_band(scene: T.Scene, cam: T.Camera, px: torch.Tensor,
     """Radiance [N, 3] of per-lane frame pixels (px, py): center-of-pixel
     rays (src/Scene.cpp:365-384) through the scene's integrator, or
     through ``integrate(scene, rays, bg, key)`` when given."""
-    rays = camera_model.primary_rays_at(cam, px, py)
-    bg = _background_radiance(scene, cam, rays, px, py)
+    rays, bg = _band_rays(scene, cam, px, py)
     return (integrate or _integrator(scene))(scene, rays, bg, key)
 
 
@@ -139,17 +195,10 @@ def render_sample_range(scene: T.Scene, cam: T.Camera, key: rng.Key,
     """Mean radiance [N, 3] over jittered samples [base, base + count) of a
     band's per-lane pixels (px, row0 + py_rel), in lane order, through the
     scene's integrator or ``integrate``."""
-    if rows < cam.ny:       # decorrelate bands (full frames keep the stream)
-        key = rng.fold_in(key, row0)
-    rays = camera_model.sample_rays_at(cam, key, px, row0 + py_rel, base,
-                                       count)
-    bg = _background_radiance(scene, cam, rays, px, row0 + py_rel, count)
+    key = _band_key(cam, rows, key, row0)
+    rays, bg = _band_rays(scene, cam, px, row0 + py_rel, key, base, count)
     out = (integrate or _integrator(scene))(scene, rays, bg, key)
-    out = out.reshape(-1, count, 3)
-    acc = out[:, 0]         # the samples summed in order, then divided
-    for k in range(1, count):
-        acc = acc + out[:, k]
-    return cdiv(acc, count)
+    return cdiv(_sample_sums(out, count), count)
 
 
 def with_spp(cam: T.Camera, spp: int | None) -> T.Camera:
@@ -219,11 +268,149 @@ class FilmCheckpoint:
         return True
 
 
+def _film_rows(x: torch.Tensor, idx: torch.Tensor, rows: int, nx: int):
+    """Lane-ordered [rows * nx, 3] -> [rows, nx, 3] on the host."""
+    return _unswizzled(x, idx).cpu().numpy().reshape(rows, nx, 3)
+
+
+class _EagerBand:
+    """A band rendered op by op: the CPU path, and CUDA with
+    ``render_camera(..., _graphs=False)``."""
+
+    def __init__(self, scene: T.Scene, cam: T.Camera, rows: int):
+        self.cam, self.rows = cam, rows
+        self.px, self.py_rel = camera_model.band_pixels(cam.nx, rows,
+                                                        scene.device)
+        self.idx = camera_model.band_unswizzle_index(self.px, self.py_rel,
+                                                     cam.nx)
+
+    def single(self, scene, row0, key, integrate):
+        """The band's 1-spp radiance [N, 3] in lane order."""
+        return render_band(scene, self.cam, self.px, row0 + self.py_rel,
+                           key, integrate)
+
+    def sums(self, scene, film_sums):
+        """The band's sample sums in lane order: 0, or the film's."""
+        if film_sums is None:
+            return torch.zeros((self.px.shape[0], 3), device=scene.device)
+        return torch.from_numpy(film_sums.reshape(-1, 3)).to(
+            scene.device)[self.idx]
+
+    def chunk(self, scene, acc, key, done, s, row0, integrate):
+        """``acc`` plus the mean of samples ``[done, done + s)`` times
+        ``s``, drawn as ``render_sample_range`` draws them from ``key``."""
+        img = render_sample_range(scene, self.cam, key, done, s, row0,
+                                  self.rows, self.px, self.py_rel, integrate)
+        return acc + img * float(s)
+
+    def film(self, x, total: int, ldr: bool):
+        """The band's film rows on the host (``_film_values`` of ``x``)."""
+        return _film_rows(_film_values(x, total, ldr), self.idx, self.rows,
+                          self.cam.nx)
+
+
+class _GraphedBand(_EagerBand):
+    """A band through its captured programs (utils/graphs.py): the JAX
+    package's jitted band functions with ``cam`` and ``n_rows`` static. The
+    rays and background graph of each sample count reads the key table,
+    ``row0`` and ``base``; the integrator runs through its own programs;
+    the tail graphs take the chunk's mean into the band's sums and the
+    film's division, quantization and unswizzle. Each step is the eager
+    band's own function (``_band_rays``, ``_sample_sums``,
+    ``_film_values``), and every output lands in a buffer of its own."""
+
+    def __init__(self, progs: graphs.Programs, scene, cam, rows: int):
+        super().__init__(scene, cam, rows)
+        dev = scene.device
+        n = self.px.shape[0]
+        self.progs = progs
+        self.row0 = torch.zeros((), dtype=torch.int64, device=dev)
+        self.base = torch.zeros((), dtype=torch.int64, device=dev)
+        self.keys = rng.KeyTable(dev)
+        self.out = torch.empty((n, 3), device=dev)     # the 1-spp radiance
+        self.acc = torch.empty((n, 3), device=dev)     # the sample sums
+        self.samples = {}   # count -> radiance [n * count, 3], lane order
+        self.rays = {}      # count (0: 1 spp) -> Graph
+        self.means = {}     # count -> Graph
+        self.ends = {}      # (total, ldr) -> Graph
+
+    def _rays(self, scene, count: int):
+        """Rays and background of the band (``render_band``'s or
+        ``render_sample_range``'s, up to the integrator)."""
+        g = self.rays.get(count)
+        if g is None:
+            def body(sc):
+                rays, bg = _band_rays(
+                    sc, self.cam, self.px, self.row0 + self.py_rel,
+                    self.keys.key() if count else None, self.base, count)
+                return (*rays.o, *rays.d, rays.time, *bg)
+            g = self.rays[count] = graphs.Graph(
+                body, self.progs, tables=(self.keys,) if count else (),
+                name=f"rays x{count}")
+        out = g(scene)
+        return (intersect.Rays(o=Vec3(*out[0:3]), d=Vec3(*out[3:6]),
+                               time=out[6]), Vec3(*out[7:10]))
+
+    def single(self, scene, row0, key, integrate):
+        self.row0.fill_(row0)
+        rays, bg = self._rays(scene, 0)
+        self.out.copy_((integrate or _integrator(scene))(scene, rays, bg,
+                                                         key))
+        return self.out
+
+    def sums(self, scene, film_sums):
+        if film_sums is None:
+            self.acc.zero_()
+        else:
+            self.acc.copy_(super().sums(scene, film_sums))
+        return self.acc
+
+    def chunk(self, scene, acc, key, done, s, row0, integrate):
+        key = _band_key(self.cam, self.rows, key, row0)
+        self.row0.fill_(row0)
+        self.base.fill_(done)
+        self.keys.set_root(key)
+        rays, bg = self._rays(scene, s)
+        out = (integrate or _integrator(scene))(scene, rays, bg, key)
+        buf = self.samples.get(s)
+        if buf is None:
+            buf = self.samples[s] = torch.empty_like(out)
+        buf.copy_(out)
+        g = self.means.get(s)
+        if g is None:
+            def body(sc):
+                return (self.acc + cdiv(_sample_sums(buf, s), s) * float(s),)
+            g = self.means[s] = graphs.Graph(body, self.progs,
+                                             into=[self.acc],
+                                             name=f"mean x{s}")
+        g(scene)
+        return self.acc
+
+    def film(self, x, total: int, ldr: bool):
+        g = self.ends.get((total, ldr))
+        if g is None:
+            src = self.acc if total > 1 else self.out
+
+            def body():
+                return (_unswizzled(_film_values(src, total, ldr), self.idx),)
+            g = self.ends[(total, ldr)] = graphs.Graph(
+                body, self.progs, name=f"film /{total} ldr={ldr}")
+        flat, = g()
+        return flat.cpu().numpy().reshape(self.rows, self.cam.nx, 3)
+
+
+def _cam_key(cam: T.Camera) -> tuple:
+    """The camera's fields, hashable: what a band's graphs bake in."""
+    return tuple(v.tobytes() if isinstance(v, np.ndarray) else v
+                 for v in dataclasses.astuple(cam))
+
+
 def render_camera(loaded: T.LoadedScene, cam_index: int = 0, seed: int = 0,
                   spp: int | None = None, ldr: bool = False,
                   checkpoint: FilmCheckpoint | None = None,
                   _abort_after_saves: int | None = None,
-                  _distribute=None) -> np.ndarray:
+                  _distribute=None, _graphs: bool | None = None
+                  ) -> np.ndarray:
     """Render one camera to a [ny, nx, 3] image on the host.
 
     Float32 radiance, or with ``ldr=True`` uint8 quantized on the device:
@@ -240,16 +427,29 @@ def render_camera(loaded: T.LoadedScene, cam_index: int = 0, seed: int = 0,
     from ``parallel/distributed.py`` or ``count_net_rays``: bands whose
     index ``owns`` refuses (none when it is None) stay 0 and launch
     nothing, and ``integrate(scene, rays, bg, key)`` replaces the scene's
-    integrator.
+    integrator. ``_graphs`` runs the bands through their captured programs
+    (True), or op by op (False); None, the default, is True on CUDA and
+    False elsewhere. A CPU device runs the programs' bodies eagerly.
     """
+    scene = loaded.scene
+    if _graphs is None:
+        _graphs = scene.device.type == "cuda"
+    with graphs.running(_graphs):
+        return _render_camera(loaded, cam_index, seed, spp, ldr, checkpoint,
+                              _abort_after_saves, _distribute, _graphs)
+
+
+@torch.no_grad()
+def _render_camera(loaded, cam_index, seed, spp, ldr, checkpoint,
+                   abort_after_saves, distribute, graphed):
     scene = loaded.scene
     cam = with_spp(loaded.cameras[cam_index], spp)
     key = rng.PRNGKey(seed)
     total = max(1, cam.num_samples)
     band = band_rows(cam)
     chunk = max(1, MAX_LANES // (cam.nx * band))
-    owns, integrate = _distribute or (None, None)
-    ldr = ldr and checkpoint is None and _distribute is None
+    owns, integrate = distribute or (None, None)
+    ldr = ldr and checkpoint is None and distribute is None
     # with a checkpoint above 1 spp, ``film`` holds the sample sums (the
     # npz's film_sum) until the division at the end
     film = np.zeros((cam.ny, cam.nx, 3), np.uint8 if ldr else np.float32)
@@ -259,13 +459,14 @@ def render_camera(loaded: T.LoadedScene, cam_index: int = 0, seed: int = 0,
         got = checkpoint.load(cam, seed)
         if got is not None:
             film, counts, start_row = got
+    progs = graphs.programs(scene) if graphed else None
 
     def save(next_row0):
         nonlocal saves
         if checkpoint.save(cam, seed, film, counts, next_row0):
             saves += 1
-            if _abort_after_saves is not None \
-                    and saves >= _abort_after_saves:
+            if abort_after_saves is not None \
+                    and saves >= abort_after_saves:
                 raise KeyboardInterrupt("render aborted by test hook")
 
     for row0 in range(start_row, cam.ny, band):
@@ -273,19 +474,14 @@ def render_camera(loaded: T.LoadedScene, cam_index: int = 0, seed: int = 0,
             continue
         rows = min(band, cam.ny - row0)
         sl = slice(row0, row0 + rows)
-        px, py_rel = camera_model.band_pixels(cam.nx, rows, scene.device)
-        idx = camera_model.band_unswizzle_index(px, py_rel, cam.nx)
-
-        def to_rows(out):
-            """Lane-ordered [rows * nx, 3] -> [rows, nx, 3] on the host."""
-            flat = torch.empty_like(out)
-            flat[idx] = out
-            return flat.cpu().numpy().reshape(rows, cam.nx, 3)
+        runner = (progs.get(("band", _cam_key(cam), rows),
+                            lambda: _GraphedBand(progs, scene, cam, rows))
+                  if graphed else _EagerBand(scene, cam, rows))
 
         if total == 1:
-            out = render_band(scene, cam, px, row0 + py_rel, key, integrate)
+            out = runner.single(scene, row0, key, integrate)
             if checkpoint is not None:
-                film[sl] = to_rows(out)
+                film[sl] = runner.film(out, 1, False)
                 counts[sl] = 1
                 if checkpoint.due() or row0 + rows >= cam.ny:
                     save(row0 + rows)
@@ -294,27 +490,20 @@ def render_camera(loaded: T.LoadedScene, cam_index: int = 0, seed: int = 0,
             # the band's sums in lane order, restored from a checkpoint
             # that stopped inside it; the add order stays acc + img * s
             done = int(counts[sl].max())
-            acc = (torch.from_numpy(film[sl].reshape(-1, 3)).to(
-                scene.device)[idx] if done else
-                torch.zeros((px.shape[0], 3), device=scene.device))
+            out = runner.sums(scene, film[sl] if done else None)
             while done < total:
                 s = min(chunk, total - done)
-                img = render_sample_range(scene, cam, rng.fold_in(key, done),
-                                          done, s, row0, rows, px, py_rel,
-                                          integrate)
-                acc = acc + img * float(s)
+                out = runner.chunk(scene, out, rng.fold_in(key, done), done,
+                                   s, row0, integrate)
                 done += s
                 if checkpoint is not None and (checkpoint.due()
                                                or done >= total):
-                    film[sl] = to_rows(acc)
+                    film[sl] = _film_rows(out, runner.idx, rows, cam.nx)
                     counts[sl] = done
                     save(row0 + band if done >= total else row0)
             if checkpoint is not None:
                 continue
-            out = cdiv(acc, total)
-        if ldr:
-            out = torch.clamp(out, 0.0, 255.0).to(torch.uint8)
-        film[sl] = to_rows(out)
+        film[sl] = runner.film(out, total, ldr)
     if checkpoint is None:
         return film
     checkpoint.save(cam, seed, film, counts, cam.ny, force=True)
@@ -322,7 +511,8 @@ def render_camera(loaded: T.LoadedScene, cam_index: int = 0, seed: int = 0,
 
 
 def count_net_rays(loaded: T.LoadedScene, cam_index: int = 0,
-                   seed: int = 0, spp: int | None = None) -> int:
+                   seed: int = 0, spp: int | None = None,
+                   _graphs: bool | None = None) -> int:
     """Rays the live lanes of a frame trace (the JAX package's
     ``count_net_rays``): extension rays of the lanes still active at each
     iteration or bounce, plus the shadow rays of the lanes shaded. The
@@ -331,7 +521,7 @@ def count_net_rays(loaded: T.LoadedScene, cam_index: int = 0,
     It renders the frame once more through ``render_camera``, with an
     integrator that also counts, so bands, sample chunks and keys are the
     frame's own; its one host read is the final sum. Call it outside a
-    timed region.
+    timed region. ``_graphs`` is ``render_camera``'s.
     """
     counted = _integrator(loaded.scene, with_stats=True)
     nets = []
@@ -341,7 +531,7 @@ def count_net_rays(loaded: T.LoadedScene, cam_index: int = 0,
         nets.append(net)
         return radiance
     render_camera(loaded, cam_index, seed=seed, spp=spp,
-                  _distribute=(None, integrate))
+                  _distribute=(None, integrate), _graphs=_graphs)
     return int(torch.stack(nets).sum())
 
 
